@@ -1,4 +1,4 @@
-"""Port parity: the filterbank of `dsr_tpu_torch` against `dsr_tpu`.
+"""Port parity: the filterbank analysis of `dsr_tpu_torch` against `dsr_tpu`.
 
 The port's plain path (what a CPU tensor runs) is held to the JAX package's
 XLA path and to its Pallas kernels, which run in interpret mode on the CPU
@@ -12,146 +12,32 @@ import numpy as np
 import pytest
 import torch
 
-from dsr_tpu.config import ArrayGeometry as JGeometry
-from dsr_tpu.config import FilterbankConfig as JFilterbankConfig
-from dsr_tpu.ops import beamforming as jbf
+from _torch_parity import filterbank_case, rel
 from dsr_tpu.ops import filterbank as jfb
 from dsr_tpu.ops.pallas import filterbank as pfb
-from dsr_tpu_torch import convert
-from dsr_tpu_torch.config import FilterbankConfig
 from dsr_tpu_torch.ops import filterbank as tfb
-from dsr_tpu_torch.ops.cuda import filterbank as cfb
-from dsr_tpu_torch.utils import design
-from golden import room as groom
-
-torch.set_num_threads(2)
 
 TOL = 1e-5
-SR = 16000.0
-
-
-def _rel(a, ref) -> float:
-    a, ref = np.asarray(a), np.asarray(ref)
-    assert a.shape == ref.shape
-    return float(np.max(np.abs(a - ref)) / np.max(np.abs(ref)))
-
-
-def _case(M):
-    """(port cfg, JAX cfg, hf, gf, delay): the shipped M=256 prototypes (D=128,
-    the TPU's v5 kernels) or random ones at M=512 (D=256, its general kernels)."""
-    cfg, jcfg = FilterbankConfig(M=M, m=4, r=2), JFilterbankConfig(M=M, m=4, r=2)
-    if M == 256:
-        hf, gf, delay = jfb.get_prototypes(jcfg)
-    else:
-        rng = np.random.default_rng(5)
-        hf = rng.standard_normal(cfg.L).astype(np.float32) / 16
-        gf = rng.standard_normal(cfg.L).astype(np.float32) / 16
-        delay = 0
-    return cfg, jcfg, hf, gf, delay
 
 
 @pytest.mark.parametrize("ref", ["xla", "pallas"])
 @pytest.mark.parametrize("M", [256, 512])
 def test_analysis_matches_jax(M, ref):
-    cfg, jcfg, hf, _, _ = _case(M)
+    cfg, jcfg, hf, _, _ = filterbank_case(M)
     x = np.random.default_rng(0).standard_normal((2, 20000)).astype(np.float32)
     jax_fn = jfb.analysis if ref == "xla" else pfb.analysis
     A_ref = np.asarray(jax_fn(x, jcfg, hf))
     A = tfb.analysis(torch.as_tensor(x), cfg, hf)
     assert A.dtype == torch.complex64
-    assert _rel(A.numpy(), A_ref) < TOL
-
-
-@pytest.mark.parametrize("ref", ["xla", "pallas"])
-@pytest.mark.parametrize("M", [256, 512])
-def test_synthesis_matches_jax_and_reconstructs(M, ref):
-    cfg, jcfg, hf, gf, delay = _case(M)
-    x = np.random.default_rng(1).standard_normal((2, 20000)).astype(np.float32)
-    A = np.array(jfb.analysis(x, jcfg, hf))
-    jax_fn = jfb.synthesis if ref == "xla" else pfb.synthesis
-    y_ref = np.asarray(jax_fn(A, jcfg, x.shape[-1], gf, delay))
-    y = tfb.synthesis(torch.as_tensor(A), cfg, x.shape[-1], gf, delay)
-    assert y.dtype == torch.float32
-    assert _rel(y.numpy(), y_ref) < TOL
-    if M == 256:  # designed prototypes: near-perfect reconstruction
-        err_db = 20 * np.log10(np.max(np.abs(y.numpy() - x)) / np.max(np.abs(x)))
-        assert err_db < -50.0
-
-
-@pytest.mark.parametrize("delay", [0, 37, 100_000])
-def test_synthesis_delay_and_clamped_start_match_xla(delay):
-    """A delay shifts the output start; past the end of the stream the start
-    is clamped, as the JAX package's dynamic slice clamps it."""
-    cfg, jcfg, hf, gf, _ = _case(256)
-    x = np.random.default_rng(2).standard_normal(5000).astype(np.float32)
-    A = np.array(jfb.analysis(x, jcfg, hf))
-    y_ref = np.asarray(jfb.synthesis(A, jcfg, x.shape[-1], gf, delay))
-    y = tfb.synthesis(torch.as_tensor(A), cfg, x.shape[-1], gf, delay)
-    assert _rel(y.numpy(), y_ref) < TOL
+    assert rel(A.numpy(), A_ref) < TOL
 
 
 def test_one_dimensional_inputs_squeeze_like_jax():
-    cfg, jcfg, _, _, _ = _case(256)
+    cfg, jcfg, _, _, _ = filterbank_case(256)
     x = np.random.default_rng(3).standard_normal(3000).astype(np.float32)
     A_ref = np.array(jfb.analysis(x, jcfg))
     A = tfb.analysis(torch.as_tensor(x), cfg)
     assert A.shape == A_ref.shape == (tfb.num_frames(3000, cfg), cfg.num_bins)
     y = tfb.synthesis(A, cfg, 3000)
     assert y.shape == (3000,)
-    assert _rel(y.numpy(), np.asarray(jfb.synthesis(A_ref, jcfg, 3000))) < TOL
-
-
-def test_fused_analysis_beamform_matches_pallas():
-    """The fused analysis+beamform (plain twin of the CUDA kernel) against
-    the Pallas fused kernel, MVDR weights carried across by convert."""
-    N = 6
-    cfg, jcfg, _, _, _ = _case(256)
-    POS = np.asarray(JGeometry.circular(N, 0.10).positions)
-    taus = (groom.steering_delays(POS, np.array([0.0, 2.0, 0.0]), 343.0, SR) / SR).astype(
-        np.float32
-    )
-    Gamma = jbf.diffuse_coherence(POS, cfg.M, SR, 343.0)
-    w = jbf.mvdr_weights(jbf.steering_vectors(taus, cfg.M, SR), Gamma)
-    x = np.random.default_rng(7).standard_normal((N, 40960)).astype(np.float32)
-    Y_ref = np.asarray(pfb.analysis_beamform(x, w, jcfg))
-    Y = cfb.analysis_beamform(torch.as_tensor(x), convert.beamformer_weights(w), cfg)
-    assert Y.shape == (tfb.num_frames(40960, cfg), cfg.num_bins)
-    assert _rel(Y.numpy(), Y_ref) < TOL
-
-
-def test_prototypes_bit_equal_to_jax():
-    shipped = sorted(design.PROTOTYPE_DIR.glob("proto-*.npz"))
-    assert len(shipped) == 5
-    for path in shipped:
-        M, m, r, b, j = (s[1:] for s in path.stem.split("-")[1:])
-        cfg = FilterbankConfig(int(M), int(m), int(r), float(b), int(j))
-        jcfg = JFilterbankConfig(int(M), int(m), int(r), float(b), int(j))
-        hf, gf, delay = tfb.get_prototypes(cfg)
-        jhf, jgf, jdelay = jfb.get_prototypes(jcfg)
-        assert hf.dtype == jhf.dtype and np.array_equal(hf, jhf)
-        assert gf.dtype == jgf.dtype and np.array_equal(gf, jgf)
-        assert delay == jdelay
-
-
-def test_unshipped_prototype_raises():
-    with pytest.raises(ValueError, match="no shipped filterbank prototype"):
-        tfb.get_prototypes(FilterbankConfig(M=128, m=4, r=2))
-
-
-def test_cpu_tensors_run_plain_and_leave_launch_counters_at_zero():
-    cfg = FilterbankConfig(M=64, m=4, r=2)
-    x = torch.as_tensor(np.random.default_rng(4).standard_normal((3, 2000)).astype(np.float32))
-    w = torch.ones((cfg.num_bins, 3), dtype=torch.complex64) / 3
-    cfb.reset_launches()
-    A = tfb.analysis(x, cfg)
-    tfb.synthesis(A, cfg, 2000)
-    Y = cfb.analysis_beamform(x, w, cfg)
-    assert cfb.launches == {"analysis": 0, "analysis_beamform": 0, "synthesis": 0}
-    assert torch.allclose(Y, A.mean(0), atol=1e-6)
-
-
-def test_kernel_wrappers_refuse_other_devices():
-    x = torch.zeros((2, 1000), device="meta")
-    hf = torch.zeros(256, device="meta")
-    with pytest.raises(ValueError, match="CUDA device"):
-        cfb.analysis(x, hf, 64, 4, 2, 20)
+    assert rel(y.numpy(), np.asarray(jfb.synthesis(A_ref, jcfg, 3000))) < TOL

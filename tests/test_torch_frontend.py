@@ -1,61 +1,31 @@
-"""Port parity: beamforming, subband features and GMM scoring of
-`dsr_tpu_torch` against `dsr_tpu`, with parameters carried across by
-`dsr_tpu_torch.convert`.  Inputs are made with numpy from a seed.
+"""Port parity: subband features and GMM scoring of `dsr_tpu_torch` against
+`dsr_tpu`, with parameters carried across by `dsr_tpu_torch.convert`, and the
+port's copies of the design helpers against `golden`.  Inputs are made with
+numpy from a seed.
 
-Tolerances, each relative to the largest magnitude of the reference:
-  - 1e-5 for elementwise float32 math (steering phases, coherence, DS,
-    apply, CMN), which differs only in rounding order;
-  - 1e-4 for MVDR weights: Γ + 1e-2·I of a 0.10 m array is ill-conditioned
-    at the low bins (condition number ~8e2 for 8 mics at DC, where Γ is all
-    ones), so two LAPACK complex64 solves agree to ~cond·eps;
-  - 1e-5 for MFCC and GMM scores, float32 matmuls, logs and logsumexp.
+Tolerance: 1e-5 of the largest magnitude of the reference for MFCC, CMN and
+GMM scores (float32 matmuls, logs and logsumexp, which differ only in
+rounding order); the design helpers are bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import SR, M, geometry, rel, subbands
 from dsr_tpu.asr.am import gmm as jgmm
-from dsr_tpu.config import ArrayGeometry as JGeometry
-from dsr_tpu.ops import beamforming as jbf
 from dsr_tpu.ops import features as jft
 from dsr_tpu_torch import convert
 from dsr_tpu_torch.asr.am import gmm
-from dsr_tpu_torch.config import ArrayGeometry
-from dsr_tpu_torch.ops import beamforming as bf
 from dsr_tpu_torch.ops import features as ft
 from dsr_tpu_torch.utils import design
 from golden import features as gfeat
 from golden import filterbank as gfb
 from golden import room as groom
 
-torch.set_num_threads(2)
-
-SR = 16000.0
-M = 256
-
-
-def _rel(a, ref) -> float:
-    a, ref = np.asarray(a), np.asarray(ref)
-    assert a.shape == ref.shape
-    return float(np.max(np.abs(a - ref)) / np.max(np.abs(ref)))
-
-
-def _geometry(n=8, radius=0.10):
-    POS = np.asarray(ArrayGeometry.circular(n, radius).positions)
-    assert np.array_equal(POS, np.asarray(JGeometry.circular(n, radius).positions))
-    taus = (groom.steering_delays(POS, np.array([0.0, 2.0, 0.0]), 343.0, SR) / SR)
-    return POS, taus.astype(np.float32)
-
-
-def _subbands(rng, N=8, T=40, K=M // 2 + 1):
-    return (rng.standard_normal((N, T, K)) + 1j * rng.standard_normal((N, T, K))).astype(
-        np.complex64
-    )
-
 
 def test_design_helpers_equal_golden():
-    POS, _ = _geometry()
+    POS, _ = geometry()
     src = np.array([0.5, 2.0, 0.3])
     assert np.array_equal(design.steering_delays(POS, src, 343.0, SR),
                           groom.steering_delays(POS, src, 343.0, SR))
@@ -68,61 +38,14 @@ def test_design_helpers_equal_golden():
         assert design.num_frames(S, 256, 4, 2) == gfb.num_frames(S, 256, 4, 2)
 
 
-def test_steering_and_fixed_weights_match_jax():
-    POS, taus = _geometry()
-    v_ref = np.asarray(jbf.steering_vectors(taus, M, SR))
-    v = bf.steering_vectors(torch.as_tensor(taus), M, SR)
-    assert v.dtype == torch.complex64
-    assert _rel(v.numpy(), v_ref) < 1e-5
-    assert _rel(bf.ds_weights(v).numpy(), np.asarray(jbf.ds_weights(v_ref))) < 1e-5
-    assert _rel(bf.subband_freqs(M, SR).numpy(), np.asarray(jbf.subband_freqs(M, SR))) < 1e-6
-    G_ref = np.asarray(jbf.diffuse_coherence(POS, M, SR, 343.0))
-    G = bf.diffuse_coherence(POS, M, SR, 343.0)
-    assert G.dtype == torch.float32
-    assert _rel(G.numpy(), G_ref) < 1e-5
-
-
-def test_mvdr_weights_match_jax():
-    POS, taus = _geometry()
-    v_ref = jbf.steering_vectors(taus, M, SR)
-    G_ref = jbf.diffuse_coherence(POS, M, SR, 343.0)
-    w_ref = np.asarray(jbf.mvdr_weights(v_ref, G_ref, 1e-2))
-    v = bf.steering_vectors(torch.as_tensor(taus), M, SR)
-    G = bf.diffuse_coherence(POS, M, SR, 343.0)
-    w = bf.mvdr_weights(v, G, 1e-2)
-    assert w.dtype == torch.complex64
-    assert _rel(w.numpy(), w_ref) < 1e-4
-    w_inv = bf.mvdr_weights_from_inv(v, bf.mvdr_precompute(G, 1e-2))
-    w_inv_ref = np.asarray(jbf.mvdr_weights_from_inv(v_ref, jbf.mvdr_precompute(G_ref, 1e-2)))
-    assert _rel(w_inv.numpy(), w_inv_ref) < 1e-4
-    # distortionless towards the source: wᴴv = 1 in every bin
-    resp = torch.sum(w.conj() * v, dim=-1)
-    assert torch.allclose(resp, torch.ones_like(resp), atol=1e-4)
-
-
-def test_apply_weights_and_ds_beamform_match_jax():
-    rng = np.random.default_rng(0)
-    _, taus = _geometry()
-    X = _subbands(rng)
-    w = np.asarray(jbf.ds_weights(jbf.steering_vectors(taus, M, SR)))
-    Y_ref = np.asarray(jbf.apply_weights(X, w))
-    Y = bf.apply_weights(torch.as_tensor(X), convert.beamformer_weights(w))
-    assert _rel(Y.numpy(), Y_ref) < 1e-5
-    assert _rel(bf.ds_beamform(torch.as_tensor(X), torch.as_tensor(taus), M, SR).numpy(),
-                np.asarray(jbf.ds_beamform(X, taus, M, SR))) < 1e-5
-    taus_t = (taus[None, :] * np.linspace(0.5, 1.5, X.shape[1])[:, None]).astype(np.float32)
-    assert _rel(bf.ds_beamform(torch.as_tensor(X), torch.as_tensor(taus_t), M, SR).numpy(),
-                np.asarray(jbf.ds_beamform(X, taus_t, M, SR))) < 1e-5
-
-
 @pytest.mark.parametrize("warp", [1.0, 0.92])
 def test_subband_mfcc_and_cmn_match_jax(warp):
     rng = np.random.default_rng(1)
-    Y = _subbands(rng, N=1)[0]
+    Y = subbands(rng, N=1)[0]
     f_ref = np.asarray(jft.cmn(jft.mfcc_from_subbands(Y, M, SR, vtln_warp=warp)))
     f = ft.cmn(ft.mfcc_from_subbands(torch.as_tensor(Y), M, SR, vtln_warp=warp))
     assert f.shape == (40, 13)
-    assert _rel(f.numpy(), f_ref) < 1e-5
+    assert rel(f.numpy(), f_ref) < 1e-5
     assert torch.allclose(f.mean(0), torch.zeros(13), atol=1e-5)
 
 
@@ -142,22 +65,14 @@ def test_gmm_loglik_and_posteriors_match_jax():
     W_ref, shape_ref = jgmm.pack_matmul_weights(jp)
     W, shape = gmm.pack_matmul_weights(p)
     assert shape == shape_ref
-    assert _rel(W.numpy(), np.asarray(W_ref)) < 1e-6
+    assert rel(W.numpy(), np.asarray(W_ref)) < 1e-6
     ll_ref = np.asarray(jgmm.loglik(jp, feats))
     ll = gmm.loglik(p, torch.as_tensor(feats))
     assert ll.shape == (2, 30, 12)
-    assert _rel(ll.numpy(), ll_ref) < 1e-5
+    assert rel(ll.numpy(), ll_ref) < 1e-5
     assert torch.equal(p(torch.as_tensor(feats)), ll)
     sll_ref, post_ref = (np.asarray(a) for a in jgmm.component_posteriors(jp, feats))
     sll, post = gmm.component_posteriors(p, torch.as_tensor(feats))
-    assert _rel(sll.numpy(), sll_ref) < 1e-5
+    assert rel(sll.numpy(), sll_ref) < 1e-5
     assert np.max(np.abs(post.numpy() - post_ref)) < 1e-5
     assert p.num_states == jp.num_states == 12
-
-
-def test_convert_prototypes():
-    hf, gf, delay = design.get_prototypes(design.FilterbankConfig())
-    hf_t, gf_t, d = convert.prototypes(hf, gf, np.int64(delay))
-    assert hf_t.dtype == gf_t.dtype == torch.float32 and isinstance(d, int)
-    assert np.array_equal(hf_t.numpy(), hf.astype(np.float32))
-    assert np.array_equal(gf_t.numpy(), gf.astype(np.float32))

@@ -1,44 +1,26 @@
-"""Port parity end to end: `dsr_tpu_torch.pipeline.DsrPipeline.process` and
-the `entry` forward against `dsr_tpu.pipeline` and `__graft_entry__`, plus
-the port's device and import rules.
+"""Port parity end to end: `dsr_tpu_torch.pipeline.DsrPipeline.process`
+against `dsr_tpu.pipeline`, and the options the port does not carry yet.
 
 Tolerances, relative to the largest magnitude of the reference: 1e-5 for
 the DS waveform (filterbank and beamform rounding only); 1e-4 for what the
 MVDR weights feed (their solve is ill-conditioned at the low bins, see
-tests/test_torch_frontend.py) and for features and scores (log-mel
-magnifies rounding in quiet bands; the GMM squares the features).
+tests/test_torch_beamforming.py) and for features (log-mel magnifies
+rounding in quiet bands).
 """
-
-import ast
-import os
-import pathlib
-import subprocess
-import sys
 
 import numpy as np
 import pytest
-import torch
 
-import __graft_entry__
+from _torch_parity import rel
 from dsr_tpu.config import ArrayGeometry as JGeometry
 from dsr_tpu.config import BeamformerConfig as JBeamformerConfig
 from dsr_tpu.config import FilterbankConfig as JFilterbankConfig
 from dsr_tpu.pipeline import DsrPipeline as JDsrPipeline
 from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
-from dsr_tpu_torch.entry import entry
 from dsr_tpu_torch.ops.cuda import filterbank as cfb
 from dsr_tpu_torch.pipeline import DsrPipeline
 
-torch.set_num_threads(2)
-
-REPO = pathlib.Path(__file__).resolve().parents[1]
 SOURCE = np.array([0.3, 2.0, 0.0])
-
-
-def _rel(a, ref) -> float:
-    a, ref = np.asarray(a), np.asarray(ref)
-    assert a.shape == ref.shape
-    return float(np.max(np.abs(a - ref)) / np.max(np.abs(ref)))
 
 
 @pytest.mark.parametrize("kind,geometry,wave_tol", [
@@ -58,29 +40,9 @@ def test_process_matches_jax(kind, geometry, wave_tol):
     cfb.reset_launches()
     y, feats = pipe.process(x, SOURCE)
     assert y.device.type == "cpu" and y.shape == (8000,)
-    assert _rel(y.numpy(), y_ref) < wave_tol
-    assert _rel(feats.numpy(), f_ref) < 1e-4
+    assert rel(y.numpy(), y_ref) < wave_tol
+    assert rel(feats.numpy(), f_ref) < 1e-4
     assert sum(cfb.launches.values()) == 0
-
-
-def test_entry_forward_matches_graft_entry():
-    jfwd, (jx,) = __graft_entry__.entry()
-    fwd, (x,) = entry("cpu")
-    assert np.array_equal(x.numpy(), jx)
-    ll_ref = np.asarray(jfwd(jx))
-    ll = fwd(x)
-    assert ll.shape == ll_ref.shape == (140, 16)
-    assert _rel(ll.numpy(), ll_ref) < 1e-4
-
-
-def test_default_device_is_the_card_and_never_falls_back():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default device is usable here")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        DsrPipeline()
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        entry()
-    assert DsrPipeline(device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -91,44 +53,3 @@ def test_default_device_is_the_card_and_never_falls_back():
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         DsrPipeline(device="cpu", **kwargs)
-
-
-def _imports(path: pathlib.Path) -> set[str]:
-    names = set()
-    for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.Import):
-            names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module)
-    return names
-
-
-def _foreign(name: str) -> bool:
-    return name.startswith("jax") or name.split(".")[0] in ("dsr_tpu", "golden")
-
-
-def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of the port, loaded in a fresh interpreter, pulls in no
-    jax*, dsr_tpu* or golden* module; and no import statement anywhere in
-    the port or chip_smoke.py (function bodies included) names one."""
-    code = (
-        "import importlib, pkgutil, sys\n"
-        "import dsr_tpu_torch\n"
-        "mods = [m.name for m in pkgutil.walk_packages(dsr_tpu_torch.__path__, 'dsr_tpu_torch.')]\n"
-        "for m in mods: importlib.import_module(m)\n"
-        "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
-        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = [m for m in sys.modules if m.startswith('jax')"
-        " or m.split('.')[0] in ('dsr_tpu', 'golden')]\n"
-        "print(len(mods), sorted(bad))\n"
-    )
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 12 and bad.strip() == "[]", out.stdout
-    files = [*sorted((REPO / "dsr_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
-    for path in files:
-        foreign = sorted(n for n in _imports(path) if _foreign(n))
-        assert not foreign, f"{path.relative_to(REPO)} imports {foreign}"
