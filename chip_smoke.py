@@ -8,10 +8,11 @@ Phases, each of which fails the run loudly:
      build of every CUDA kernel from the sources in this checkout;
   2. every kernel against its plain PyTorch version on the card, at the
      main path's shapes and at a D = 256 config, with the time of each;
-  3. the main path with the launch counters set to 0: `DsrPipeline.process`
-     (MVDR) on 4 requests of 8 ch x 4 s, GMM scoring, the `entry` forward,
-     and the serving beamform (fused analysis+beamform -> synthesis) at
-     64 ch x 8 s; every kernel must have been launched;
+  3. the main path: `DsrPipeline.process` (MVDR) on 4 requests of
+     8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
+     beamform (fused analysis+beamform -> synthesis) at 64 ch x 8 s; the
+     launch counters are set to 0 just before each of these paths and read
+     just after it, and each path must launch exactly its kernels;
   4. the outputs: finite, card == CPU plain path on the same request,
      `entry` == its plain composition on the card, DS reconstruction
      < -50 dB; then the serving beamform's audio-seconds per second.
@@ -21,6 +22,7 @@ checkout of the repository, it exits non-zero and prints no result.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -64,6 +66,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def rfft_flops(n: int) -> float:
+    """Operations of a real-input FFT of length n: half the 5 n log2 n of a
+    complex one.  The least arithmetic a length-n real DFT needs, whatever
+    way a kernel computes it."""
+    return 2.5 * n * math.log2(n)
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """Least milliseconds for the work at the card's peaks, and which bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -103,13 +112,11 @@ def main() -> int:
     print(smi)
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    built = build.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
-    for name, (path, seconds, log) in built.items():
-        print(f"  {name}: {path.name} ({seconds:.1f} s)")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"    {line.strip()}")
+    path, log = build.build()
+    print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            print(f"    {line.strip()}")
 
     cfg = FilterbankConfig(M=256, m=4, r=2)
     cfg_d256 = FilterbankConfig(M=512, m=4, r=2)
@@ -159,7 +166,7 @@ def main() -> int:
         res = compare("analysis", label, lambda: cfb.analysis(x, h, c.M, c.m, c.r, T),
                       lambda: cfb.analysis_plain(x, h, c.M, c.r, T),
                       4 * (C * S + c.L) + 8 * C * T * K,
-                      C * T * (2 * c.L + 4 * c.M * K), library=stft)
+                      C * T * (2 * c.L + rfft_flops(c.M)), library=stft)
         if main:
             record["analysis"] = res
 
@@ -170,7 +177,7 @@ def main() -> int:
                       lambda: cfb.synthesis(A, g, c.M, c.m, c.r, start, out_len),
                       lambda: cfb.synthesis_plain(A, g, c.M, c.r, start, out_len),
                       8 * C * T * K + 4 * c.L + 4 * C * out_len,
-                      C * (T * c.M * K * 4 + out_len * 2 * (c.L // c.D)))
+                      C * (T * rfft_flops(c.M) + out_len * 2 * (c.L // c.D)))
         if main:
             record["synthesis"] = res
 
@@ -189,10 +196,10 @@ def main() -> int:
     K = cfg.num_bins
     record["analysis_beamform"] = compare(
         "analysis_beamform", "64 ch x 8 s MVDR M=256 m=4 r=2",
-        lambda: cfb.analysis_beamform_frames(x64, hf_t, w64, cfg.M, cfg.m, cfg.r, T64),
+        lambda: cfb.analysis_beamform(x64, hf_t, w64, cfg.M, cfg.m, cfg.r, T64),
         lambda: cfb.analysis_beamform_plain(x64, hf_t, w64, cfg.M, cfg.r, T64),
         4 * (64 * S64 + cfg.L) + 8 * K * 64 + 8 * T64 * K,
-        64 * T64 * (2 * cfg.L + 4 * cfg.M * K + 8 * K))
+        64 * T64 * (2 * cfg.L + rfft_flops(cfg.M) + 8 * K))
 
     Y64 = cfb.analysis_beamform_plain(x64, hf_t, w64, cfg.M, cfg.r, T64)[None].contiguous()
     synthesis_case(cfg, Y64, gf_t, S64, "1 ch x 8 s (serving output)", True)
@@ -216,7 +223,7 @@ def main() -> int:
         ws = torch.view_as_complex(ws).contiguous()
         A = cfb.analysis(xs, h, c.M, c.m, c.r, T)
         errs = (rel_err(A, cfb.analysis_plain(xs, h, c.M, c.r, T)),
-                rel_err(cfb.analysis_beamform_frames(xs, h, ws, c.M, c.m, c.r, T),
+                rel_err(cfb.analysis_beamform(xs, h, ws, c.M, c.m, c.r, T),
                         cfb.analysis_beamform_plain(xs, h, ws, c.M, c.r, T)),
                 rel_err(cfb.synthesis(A, g, c.M, c.m, c.r, c.L - c.D + 5, xs.shape[-1]),
                         cfb.synthesis_plain(A, g, c.M, c.r, c.L - c.D + 5, xs.shape[-1])))
@@ -235,19 +242,37 @@ def main() -> int:
     fwd, (x_entry,) = entry()
     torch.cuda.synchronize()
 
-    cfb.reset_launches()
-    outs = []
-    for x in requests:
+    counts = dict.fromkeys(cfb.launches, 0)
+
+    def counted(path, fn, expect):
+        """fn() with the launch counters set to 0 just before it and read just
+        after; the path must have launched exactly `expect` of each kernel."""
+        cfb.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(cfb.launches)
+        print(f"launches on path {path}: {got}")
+        check(got == expect, f"path {path} launched {got}, expected {expect}")
+        for name, n in got.items():
+            counts[name] += n
+        return out
+
+    def process_and_score(x):
         y, feats = pipe.process(x, SOURCE)
-        outs.append((y, feats, gmm.loglik(params, feats)))
-    ll_entry = fwd(x_entry)
-    Y_srv = cfb.analysis_beamform(x64, w64, cfg, hf_t)
-    y_srv = fb.synthesis(Y_srv, cfg, S64, gf_t, delay)
-    torch.cuda.synchronize()
-    counts = dict(cfb.launches)
-    print(f"main path launches: {counts}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+        return y, feats, gmm.loglik(params, feats)
+
+    def serve_once():
+        Y = fb.analysis_beamform(x64, w64, cfg, hf_t)
+        return fb.synthesis(Y, cfg, S64, gf_t, delay)
+
+    outs = [counted(f"process[{i}]", lambda: process_and_score(x),
+                    {"analysis": 1, "analysis_beamform": 0, "synthesis": 1})
+            for i, x in enumerate(requests)]
+    ll_entry = counted("entry", lambda: fwd(x_entry),
+                       {"analysis": 1, "analysis_beamform": 0, "synthesis": 0})
+    y_srv = counted("serving", serve_once,
+                    {"analysis": 0, "analysis_beamform": 1, "synthesis": 1})
+    print(f"main path launches, all paths: {counts}")
 
     # ---- 4. outputs ---------------------------------------------------------
     for y, feats, ll in outs:
@@ -283,11 +308,7 @@ def main() -> int:
     print(f"DS analysis -> synthesis reconstruction on the card: {rt_db:.1f} dB (gate < -50)")
     check(rt_db < -50.0, "filterbank reconstruction")
 
-    def serve():
-        Y = cfb.analysis_beamform(x64, w64, cfg, hf_t)
-        return fb.synthesis(Y, cfg, S64, gf_t, delay)
-
-    serve_ms = cuda_ms(serve, iters=10)
+    serve_ms = cuda_ms(serve_once, iters=10)
     print(f"serving beamform 64 ch x 8 s MVDR (fused analysis+beamform -> synthesis): "
           f"{serve_ms:.3f} ms of device time per request = {8.0 / (serve_ms / 1e3):.1f} "
           f"audio-s/s [{smi}]")

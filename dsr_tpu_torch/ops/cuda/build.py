@@ -1,10 +1,9 @@
-"""Build the CUDA sources under `csrc/` into shared libraries, at first use.
+"""Build `csrc/filterbank.cu` into a shared library, at first use.
 
-Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
-Hopper (`sm_90a`) into `_build/lib<name>-<hash>.so`, where the hash covers
-the sources and flags, so an edited source is rebuilt and a built one is
-reused.  `build()` starts one `nvcc` for every source that needs it, all at
-once, and waits for them; `library()` loads one with ctypes.
+The source has a plain C interface and is compiled by `nvcc` for Hopper
+(`sm_90a`) into `_build/libfilterbank-<hash>.so`, where the hash covers the
+source and the flags, so an edited source is rebuilt and a built one is
+reused.  `library()` builds it if needed and loads it with ctypes.
 """
 
 from __future__ import annotations
@@ -16,9 +15,8 @@ import os
 import pathlib
 import shutil
 import subprocess
-import time
 
-CSRC = pathlib.Path(__file__).parent / "csrc"
+SOURCE = pathlib.Path(__file__).parent / "csrc" / "filterbank.cu"
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,50 +36,34 @@ def nvcc() -> str:
     return found
 
 
-def _target(name: str) -> pathlib.Path:
+def target() -> pathlib.Path:
+    """Where the library for the current source and flags is (or will be) built."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    digest.update(SOURCE.read_bytes())
+    return BUILD_DIR / f"libfilterbank-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, tuple[pathlib.Path, float, str]]:
-    """Compile the named sources (default: all) that are not built yet.
+def build() -> tuple[pathlib.Path, str]:
+    """Compile the source unless it is built already.
 
-    Returns {name: (library path, seconds, compiler output)}; a source that
-    was already built reports 0 seconds and no output.  Raises if any
-    compile fails, with its output.
+    Returns (library path, compiler output); the output is empty when the
+    library was already built.  Raises with the compiler's output if it fails.
     """
-    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
+    path = target()
+    if path.exists():
+        return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    results, running = {}, {}
-    for name in names:
-        target = _target(name)
-        if target.exists():
-            results[name] = (target, 0.0, "")
-            continue
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        running[name] = (proc, tmp, target, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, target, t0) in running.items():
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, target)
-        results[name] = (target, seconds, log)
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return results
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {SOURCE.name} (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, path)
+    return path, log
 
 
 @functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The built `csrc/<name>.cu`, loaded (built first if needed)."""
-    path, _, _ = build([name])[name]
-    return ctypes.CDLL(str(path))
+def library() -> ctypes.CDLL:
+    """The built filterbank kernels, loaded (built first if needed)."""
+    return ctypes.CDLL(str(build()[0]))

@@ -25,7 +25,10 @@
 // What bounds them on this card: the DFTs are evaluated directly, O(M) per
 // bin, as the TPU kernels did with matmuls.  At M = 256 that is about 2M
 // flops per (frame, bin) against 8 bytes written, far above the card's
-// flop/byte balance, so operations bound them.  This version runs them as
+// flop/byte balance, so operations bound them.  The functions themselves
+// need only a real FFT per frame (about 13x fewer operations at M = 256), so
+// their least time is set by bytes, far below these kernels' times
+// (chip_smoke.py prints both).  This version runs the direct DFTs as
 // FP32 FMAs on the CUDA cores (no tensor cores yet), as small register-tiled
 // matrix products out of shared memory:
 //   - each block builds its slice of the DFT matrix (its bins' cos/sin rows,

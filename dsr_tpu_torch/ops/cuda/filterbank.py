@@ -21,12 +21,9 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
-from dsr_tpu_torch.config import FilterbankConfig
 from dsr_tpu_torch.ops.cuda import build
-from dsr_tpu_torch.utils.design import get_prototypes, num_frames
 
 # Kernel launches since the last `reset_launches()`, by kernel.
 launches = {"analysis": 0, "analysis_beamform": 0, "synthesis": 0}
@@ -83,7 +80,7 @@ def synthesis_plain(A: torch.Tensor, gf: torch.Tensor, M: int, r: int, start: in
 
 @functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
-    lib = build.library("filterbank")
+    lib = build.library()
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dsr_fb_analysis.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
@@ -140,7 +137,7 @@ def analysis(x: torch.Tensor, hf: torch.Tensor, M: int, m: int, r: int, T: int) 
     return out
 
 
-def analysis_beamform_frames(x: torch.Tensor, hf: torch.Tensor, w: torch.Tensor,
+def analysis_beamform(x: torch.Tensor, hf: torch.Tensor, w: torch.Tensor,
                              M: int, m: int, r: int, T: int) -> torch.Tensor:
     """x (C, S) float32, hf (m·M,) float32, w (K, C) complex64 → (T, K)
     complex64, equal to `apply_weights(analysis(x), w)`."""
@@ -182,35 +179,3 @@ def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: 
     _raise_on(rc, "synthesis", M, m, r)
     launches["synthesis"] += 1
     return y
-
-
-def as_f32(h, device: torch.device) -> torch.Tensor:
-    """A prototype (numpy array or tensor) as a contiguous float32 tensor."""
-    if isinstance(h, torch.Tensor):
-        return h.to(device=device, dtype=torch.float32).contiguous()
-    return torch.as_tensor(np.asarray(h, np.float32), device=device)
-
-
-@functools.lru_cache(maxsize=32)
-def prototype_tensors(cfg: FilterbankConfig, device: torch.device):
-    """The shipped (hf, gf) as float32 tensors on `device`, and the delay,
-    copied to the device once rather than on every call.  Shared between
-    callers: do not write to them."""
-    hf, gf, delay = get_prototypes(cfg)
-    return as_f32(hf, device), as_f32(gf, device), delay
-
-
-def analysis_beamform(x: torch.Tensor, w: torch.Tensor, cfg: FilterbankConfig,
-                      hf=None) -> torch.Tensor:
-    """Fused subband analysis + fixed-weight beamform.
-
-    x: (C, S) float32 multi-channel signal; w: (K, C) complex weights
-    (`apply_weights` convention) → (T, K) complex64 beamformed subbands,
-    equal to `apply_weights(analysis(x), w)` without materialising the
-    per-channel (C, T, K) subband tensor.  The DS/MVDR serving path.
-    """
-    x = x.to(torch.float32).contiguous()
-    hf = prototype_tensors(cfg, x.device)[0] if hf is None else as_f32(hf, x.device)
-    T = num_frames(x.shape[-1], cfg.M, cfg.m, cfg.r)
-    return analysis_beamform_frames(x, hf, w.to(torch.complex64).contiguous(),
-                                    cfg.M, cfg.m, cfg.r, T)

@@ -5,11 +5,16 @@ Counterpart of `dsr_tpu/ops/filterbank.py`, same conventions and layouts:
 from the shipped designs.  On a CUDA tensor `analysis` and `synthesis`
 launch the hand-written kernels of `ops/cuda/filterbank.py` for every
 config; on a CPU tensor they run the plain versions beside those kernels,
-which follow the JAX package's XLA paths.
+which follow the JAX package's XLA paths.  `analysis_beamform` is the
+fused analysis + fixed-weight beamform of the serving path (the JAX
+package's `ops/pallas/filterbank.analysis_beamform`).
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from dsr_tpu_torch.config import FilterbankConfig
@@ -17,7 +22,23 @@ from dsr_tpu_torch.ops.cuda import filterbank as _kern
 from dsr_tpu_torch.utils import design
 from dsr_tpu_torch.utils.design import get_prototypes
 
-__all__ = ["analysis", "get_prototypes", "num_frames", "synthesis"]
+__all__ = ["analysis", "analysis_beamform", "get_prototypes", "num_frames", "synthesis"]
+
+
+def as_f32(h, device: torch.device) -> torch.Tensor:
+    """A prototype (numpy array or tensor) as a contiguous float32 tensor."""
+    if isinstance(h, torch.Tensor):
+        return h.to(device=device, dtype=torch.float32).contiguous()
+    return torch.as_tensor(np.asarray(h, np.float32), device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def prototype_tensors(cfg: FilterbankConfig, device: torch.device):
+    """The shipped (hf, gf) as float32 tensors on `device`, and the delay,
+    copied to the device once rather than on every call.  Shared between
+    callers: do not write to them."""
+    hf, gf, delay = get_prototypes(cfg)
+    return as_f32(hf, device), as_f32(gf, device), delay
 
 
 def num_frames(num_samples: int, cfg: FilterbankConfig) -> int:
@@ -28,11 +49,27 @@ def num_frames(num_samples: int, cfg: FilterbankConfig) -> int:
 def analysis(x: torch.Tensor, cfg: FilterbankConfig, hf=None) -> torch.Tensor:
     """Subband analysis: (..., S) real → (..., T, M//2+1) complex64."""
     x = x.to(torch.float32)
-    hf = _kern.prototype_tensors(cfg, x.device)[0] if hf is None else _kern.as_f32(hf, x.device)
+    hf = prototype_tensors(cfg, x.device)[0] if hf is None else as_f32(hf, x.device)
     T = num_frames(x.shape[-1], cfg)
     flat = x.reshape(-1, x.shape[-1]).contiguous()
     out = _kern.analysis(flat, hf, cfg.M, cfg.m, cfg.r, T)
     return out.reshape(*x.shape[:-1], T, cfg.num_bins)
+
+
+def analysis_beamform(x: torch.Tensor, w: torch.Tensor, cfg: FilterbankConfig,
+                      hf=None) -> torch.Tensor:
+    """Fused subband analysis + fixed-weight beamform.
+
+    x: (C, S) float32 multi-channel signal; w: (K, C) complex weights
+    (`apply_weights` convention) → (T, K) complex64 beamformed subbands,
+    equal to `apply_weights(analysis(x), w)` without materialising the
+    per-channel (C, T, K) subband tensor.  The DS/MVDR serving path.
+    """
+    x = x.to(torch.float32).contiguous()
+    hf = prototype_tensors(cfg, x.device)[0] if hf is None else as_f32(hf, x.device)
+    T = num_frames(x.shape[-1], cfg)
+    return _kern.analysis_beamform(x, hf, w.to(torch.complex64).contiguous(),
+                                   cfg.M, cfg.m, cfg.r, T)
 
 
 def synthesis(
@@ -50,7 +87,7 @@ def synthesis(
     """
     A = A.to(torch.complex64)
     if gf is None or delay is None:
-        _, gf_, delay_ = _kern.prototype_tensors(cfg, A.device)
+        _, gf_, delay_ = prototype_tensors(cfg, A.device)
         gf = gf_ if gf is None else gf
         delay = delay_ if delay is None else delay
     T = A.shape[-2]
@@ -59,5 +96,5 @@ def synthesis(
         raise ValueError(f"out_len={out_len} exceeds the {ylen} samples that {T} frames give")
     start = min(max(cfg.L - cfg.D + int(delay), 0), ylen - out_len)
     flat = A.reshape(-1, T, A.shape[-1]).contiguous()
-    y = _kern.synthesis(flat, _kern.as_f32(gf, A.device), cfg.M, cfg.m, cfg.r, start, out_len)
+    y = _kern.synthesis(flat, as_f32(gf, A.device), cfg.M, cfg.m, cfg.r, start, out_len)
     return y.reshape(*A.shape[:-2], out_len)

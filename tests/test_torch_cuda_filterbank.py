@@ -1,4 +1,4 @@
-"""The kernel wrappers of `dsr_tpu_torch.ops.cuda.filterbank` on the CPU:
+"""The filterbank kernel wrappers on the CPU:
 the fused analysis+beamform's plain twin against the Pallas fused kernel
 (interpret mode), CPU tensors running the plain twins without counting a
 launch, and other devices refused.  Tolerance: 1e-5 of the largest
@@ -28,7 +28,7 @@ def test_fused_analysis_beamform_matches_pallas():
     w = jbf.mvdr_weights(jbf.steering_vectors(taus, cfg.M, SR), Gamma)
     x = np.random.default_rng(7).standard_normal((N, 40960)).astype(np.float32)
     Y_ref = np.asarray(pfb.analysis_beamform(x, w, jcfg))
-    Y = cfb.analysis_beamform(torch.as_tensor(x), convert.beamformer_weights(w), cfg)
+    Y = tfb.analysis_beamform(torch.as_tensor(x), convert.beamformer_weights(w), cfg)
     assert Y.shape == (tfb.num_frames(40960, cfg), cfg.num_bins)
     assert rel(Y.numpy(), Y_ref) < 1e-5
 
@@ -40,7 +40,7 @@ def test_cpu_tensors_run_plain_and_leave_launch_counters_at_zero():
     cfb.reset_launches()
     A = tfb.analysis(x, cfg)
     tfb.synthesis(A, cfg, 2000)
-    Y = cfb.analysis_beamform(x, w, cfg)
+    Y = tfb.analysis_beamform(x, w, cfg)
     assert cfb.launches == {"analysis": 0, "analysis_beamform": 0, "synthesis": 0}
     assert torch.allclose(Y, A.mean(0), atol=1e-6)
 
