@@ -1,31 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA front end (`dsr_tpu_torch`) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (`dsr_tpu_torch`) on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run loudly:
   1. environment (torch, CUDA, nvcc, card name and power limit), then the
-     build of every CUDA kernel from the sources in this checkout;
+     builds, all started together, of every native source in this checkout
+     (the CUDA kernels with nvcc, the WFST core with g++), each timed;
   2. every kernel against its plain PyTorch version on the card, at the
      main path's shapes and at a D = 256 config, with the time of each;
-  3. the main path: `DsrPipeline.process` (MVDR) on 4 requests of
-     8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
+     the select kernel at the decoders' four pool shapes, bitwise;
+  3. the front end's main path: `DsrPipeline.process` (MVDR) on 4 requests
+     of 8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
      beamform (fused analysis+beamform -> synthesis) at 64 ch x 8 s; the
-     launch counters are set to 0 just before each of these paths and read
-     just after it, and each path must launch exactly its kernels;
+     launch counters are set to 0 just before each path and read just
+     after it, and each path must launch exactly its kernels;
   4. the outputs: finite, card == CPU plain path on the same request,
      `entry` == its plain composition on the card, DS reconstruction
-     < -50 dB; then the serving beamform's audio-seconds per second.
+     < -50 dB; then the serving beamform's audio-seconds per second;
+  5. the decode: the bench graph (V = 2000 trigram HCLG) built by the
+     port's own WFST core, the degree-split (a0 = 2, eg = 896) and dense
+     batched decodes at bench.py's shape (8 x 1000 frames, kcap 256, beam
+     40) with exactly 1000 select launches each and their audio-seconds
+     per second; the card's tokens and words against the CPU plain path's
+     (utterances 0-1, frames 0-199, bitwise); the in-domain 0-WER gate on
+     the V = 300 graph for both decoders; and the streaming recogniser
+     (front end + chunked decode) against the offline decode.
 The last two lines are the kernels' JSON record and the verdict
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
+import concurrent.futures
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -37,6 +49,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, FP32 outside the tensor cores
 TOL = 1e-5                     # max |kernel - plain| / max |plain|, as tests/test_pallas.py
 SPIN_CYCLES = 40_000_000       # GPU clock cycles the card waits before a timed loop
+NEG = -1e30                    # the decoders' dead score
 
 
 def check(ok: bool, what: str) -> None:
@@ -86,7 +99,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dsr_tpu_torch.asr import lvcsr
     from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.decoder import split_decoder as sd
+    from dsr_tpu_torch.asr.decoder import topk_decoder as tk
     from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
     from dsr_tpu_torch.entry import entry
     from dsr_tpu_torch.ops import beamforming as bf
@@ -94,7 +110,8 @@ def main() -> int:
     from dsr_tpu_torch.ops import filterbank as fb
     from dsr_tpu_torch.ops.cuda import build
     from dsr_tpu_torch.ops.cuda import filterbank as cfb
-    from dsr_tpu_torch.pipeline import DsrPipeline
+    from dsr_tpu_torch.ops.cuda import select as csel
+    from dsr_tpu_torch.pipeline import DsrPipeline, StreamingRecognizer
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -111,12 +128,20 @@ def main() -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(smi)
     kind = torch.cuda.get_device_name(0)
-    t0 = time.perf_counter()
-    path, log = build.build()
-    print(f"build: {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"    {line.strip()}")
+    def timed_build(name):
+        t0 = time.perf_counter()
+        path, log = build.build(name)
+        return path, log, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        builds = {name: pool.submit(timed_build, name) for name in build.SOURCES}
+        for name, fut in builds.items():
+            path, log, secs = fut.result()
+            print(f"build {name}: {path.name} in {secs:.1f} s "
+                  f"({build.SOURCES[name][1]}, started with the others)")
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    print(f"    {line.strip()}")
 
     cfg = FilterbankConfig(M=256, m=4, r=2)
     cfg_d256 = FilterbankConfig(M=512, m=4, r=2)
@@ -231,6 +256,52 @@ def main() -> int:
               + " / ".join(f"{e:.2e}" for e in errs))
         check(max(errs) <= TOL, f"kernels at M={c.M} m={c.m} r={c.r}")
 
+    # the select kernel at the decoders' pool shapes (U = 8), bitwise
+    def select_case(N, kcap, beam, seed):
+        """Candidates as the decoders make them: many duplicate destinations
+        (dst from N/3 states), exact-score ties (scores on a 1/4 grid) and
+        NEG + NEG from padded arc slots."""
+        r = np.random.default_rng(seed)
+        U = 8
+        c = (np.round(r.standard_normal((U, N)) * 40) / 4).astype(np.float32)
+        c[r.random((U, N)) < 0.2] = np.float32(NEG) + np.float32(NEG)
+        d = r.integers(0, N // 3, (U, N)).astype(np.int32)
+        a = r.permutation(U * N).reshape(U, N).astype(np.int32)
+        b = np.full(U, beam, np.float32)
+        return [torch.as_tensor(v, device=dev) for v in (c, d, a, b)]
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for N, kcap, label in ((2304, 256, "split monophone (256+896)x2"),
+                           (4608, 512, "split triphone (512+640)x4"),
+                           (12032, 256, "dense monophone 256x47"),
+                           (134656, 512, "dense triphone 512x263, two launches")):
+        for beam in (40.0, 1e9):
+            args = select_case(N, kcap, beam, N + int(beam))
+            out = csel.recombine_topk(*args, kcap)
+            ref = csel.recombine_topk_plain(*args, kcap)
+            ref_cpu = csel.recombine_topk_plain(*(v.cpu() for v in args), kcap)
+            torch.cuda.synchronize()
+            same = all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref))
+            same_cpu = all(torch.equal(bits(o).cpu(), bits(r)) for o, r in zip(out, ref_cpu))
+            ms = cuda_ms(lambda: csel.recombine_topk(*args, kcap))
+            plain_ms = cuda_ms(lambda: csel.recombine_topk_plain(*args, kcap))
+            # 12 bytes in per candidate, 12 out per kept token; at least
+            # two comparisons per candidate (recombine, select)
+            b_ms, b_by = bound(12 * 8 * N + 4 * 8 + 12 * 8 * kcap, 2 * 8 * N)
+            err = float((out[0] - ref[0]).abs().max())
+            alive = int((out[0] > NEG / 2).sum())
+            print(f"select U=8 N={N} kcap={kcap} beam={beam:g} ({label}): bitwise equal to "
+                  f"the twin on the card {same}, on the CPU {same_cpu}, {alive} live slots; "
+                  f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library n/a  bound "
+                  f"{b_ms:.5f} ms ({b_by})  [{smi}]")
+            check(same and same_cpu, f"select N={N} kcap={kcap} beam={beam}: not bitwise "
+                                     "equal to its plain twin")
+            if N == 2304 and beam == 40.0:   # the split decoder's pool, bench.py's path
+                record["select"] = dict(max_abs_err=err, rel_err=0.0, ms=ms, plain_ms=plain_ms,
+                                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
     # ---- 3. the main path, counted -----------------------------------------
     pipe = DsrPipeline(fb=cfg, geometry=ArrayGeometry.circular(8, 0.10),
                        beamformer=BeamformerConfig(kind="mvdr"))
@@ -242,15 +313,19 @@ def main() -> int:
     fwd, (x_entry,) = entry()
     torch.cuda.synchronize()
 
-    counts = dict.fromkeys(cfb.launches, 0)
+    counters = (cfb, csel)
+    counts = {name: 0 for mod in counters for name in mod.launches}
 
     def counted(path, fn, expect):
         """fn() with the launch counters set to 0 just before it and read just
-        after; the path must have launched exactly `expect` of each kernel."""
-        cfb.reset_launches()
+        after; the path must have launched exactly `expect` of each kernel
+        (0 of those it does not name)."""
+        for mod in counters:
+            mod.reset_launches()
         out = fn()
         torch.cuda.synchronize()
-        got = dict(cfb.launches)
+        got = {name: n for mod in counters for name, n in mod.launches.items()}
+        expect = {**dict.fromkeys(got, 0), **expect}
         print(f"launches on path {path}: {got}")
         check(got == expect, f"path {path} launched {got}, expected {expect}")
         for name, n in got.items():
@@ -272,7 +347,6 @@ def main() -> int:
                        {"analysis": 1, "analysis_beamform": 0, "synthesis": 0})
     y_srv = counted("serving", serve_once,
                     {"analysis": 0, "analysis_beamform": 1, "synthesis": 1})
-    print(f"main path launches, all paths: {counts}")
 
     # ---- 4. outputs ---------------------------------------------------------
     for y, feats, ll in outs:
@@ -343,14 +417,196 @@ def main() -> int:
           f"{4.0 / (proc_ms / 1e3):.1f} audio-s/s [{smi}]; stages (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
 
+    # ---- 5. the decode ------------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_graphs_") as cache_dir:
+        os.environ["DSR_TPU_TORCH_CACHE"] = cache_dir   # a fresh build, not a cached graph
+        try:
+            t0 = time.perf_counter()
+            task = lvcsr.build_task(lvcsr.LvcsrConfig())
+            t_task = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sg = sd.build_split_graph(task.graph, a0=2, device=dev)
+            t_split = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tg = tk.build_token_graph(task.graph, device=dev)
+            t_dense = time.perf_counter() - t0
+            cfg300 = lvcsr.LvcsrConfig(vocab_size=300, n_tokens=5000, branching=3)
+            task300 = lvcsr.build_task(cfg300)
+        finally:
+            del os.environ["DSR_TPU_TORCH_CACHE"]
+    print(f"graph build V=2000 trigram (the port's WFST core): {task.graph.num_states} states, "
+          f"{task.graph.num_arcs} arcs, a_max {tg.a_max}, {t_task:.2f} s "
+          f"({task.build_stats}); split tables a0=2 ({sg.num_groups} overflow groups) "
+          f"{t_split:.2f} s; dense tables {t_dense:.2f} s")
+
+    U, T, kcap, beam, eg = 8, 1000, 256, 40.0, 896    # bench.py's decode shape
+    P = task.num_pdfs
+    ll_np = np.random.default_rng(0).standard_normal((U, T, P)).astype(np.float32)
+    ll = torch.as_tensor(ll_np, device=dev)
+    lens = np.full(U, T)
+    audio_s = U * T / 125.0
+    decoders = {
+        "split": lambda: sd.decode_batch_split(sg, ll, lens, kcap=kcap, beam=beam, eg=eg),
+        "dense": lambda: tk.decode_batch(tg, ll, lens, kcap=kcap, beam=beam),
+    }
+    decode_s = {}
+    for name, run in decoders.items():
+        run()                                          # warm-up
+        out = counted(f"decode {name} 8 x 1000 frames", run, {"select": T})
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        reps = 2
+        start.record()
+        for _ in range(reps):
+            run()
+        end.record()
+        end.synchronize()
+        decode_s[name] = start.elapsed_time(end) / reps / 1e3
+        check(out[0].shape == (U, T) and bool(torch.isfinite(out[1]).all()),
+              f"decode {name} outputs")
+        extra = (f", spill frames {int(out[2].sum())}, overflow frames {int(out[3].sum())}"
+                 if name == "split" else "")
+        print(f"decode {name} U=8 T=1000 kcap=256 beam=40: {decode_s[name]:.3f} s = "
+              f"{audio_s / decode_s[name]:.1f} audio-s/s, {decode_s[name] / T * 1e3:.3f} ms "
+              f"per frame; words per utterance "
+              f"{[int((o != 0).sum()) for o in out[0]]}{extra}  [{smi}]")
+    # the device's busy share: kernel time per frame from the profiler (over
+    # 100 frames) against the timed decode's time per frame
+    for name, g_ in (("split", sg), ("dense", tg)):
+        def run100(name=name, g_=g_):
+            x = ll[:, :100]
+            if name == "split":
+                return sd.decode_batch_split(g_, x, np.full(U, 100), kcap=kcap, beam=beam, eg=eg)
+            return tk.decode_batch(g_, x, np.full(U, 100), kcap=kcap, beam=beam)
+        run100()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run100()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+        busy_us = sum(e.self_device_time_total for e in events) / 100
+        if busy_us > 0:
+            top = ", ".join(f"{e.key[:48]} {e.self_device_time_total / 100:.1f}"
+                            for e in events[:6])
+            print(f"decode {name}: device busy {busy_us:.1f} us per frame of "
+                  f"{decode_s[name] / T * 1e6:.1f} us (idle share "
+                  f"{100 * (1 - busy_us * 1e-6 / (decode_s[name] / T)):.1f} %); kernels "
+                  f"(us per frame): {top}  [{smi}]")
+        else:
+            print(f"decode {name}: device busy share not measured (the profiler recorded no "
+                  "device time)")
+    # the host's share: the traceback alone, from a finished token pass
+    states0, scores0 = tk.start_tokens(sg, U, kcap)
+    sf, scf, ts, ta, _, _ = tk.token_pass(
+        lambda s_, sc_, l_: sd.candidates(sg, s_, sc_, l_, eg), ll, lens, states0, scores0,
+        beam, kcap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src_of_row = sg.src_of_row.cpu().numpy()
+    tk.traceback_tables(sg, ts, ta, sf, scf, lens, lambda a: src_of_row[a // sg.a0])
+    t_back = time.perf_counter() - t0
+    sel_ms = {"split": record["select"]["ms"]}
+    args = select_case(12032, 256, 40.0, 12032 + 40)
+    sel_ms["dense"] = cuda_ms(lambda: csel.recombine_topk(*args, 256))
+    for name in decoders:
+        share = sel_ms[name] * T / 1e3 / decode_s[name]
+        print(f"decode {name}: select kernel {sel_ms[name]:.4f} ms x {T} frames = "
+              f"{sel_ms[name] * T / 1e3:.3f} s ({100 * share:.1f} % of the decode); "
+              f"traceback {t_back:.3f} s; the rest is the frame loop's "
+              f"gathers, adds and launches  [{smi}]")
+
+    # card against the CPU plain path: utterances 0-1, frames 0-199
+    cpu_graphs = {"split": sd.build_split_graph(task.graph, a0=2, device="cpu"),
+                  "dense": tk.build_token_graph(task.graph, device="cpu")}
+    card_graphs = {"split": sg, "dense": tg}
+    expanders = {"split": lambda g: (lambda s_, sc_, l_: sd.candidates(g, s_, sc_, l_, eg)),
+                 "dense": lambda g: (lambda s_, sc_, l_: tk.candidates(g, s_, sc_, l_))}
+    ll_cpu = torch.as_tensor(ll_np[:2, :200])
+    for name in decoders:
+        toks = []
+        for g, x in ((card_graphs[name], ll), (cpu_graphs[name], ll_cpu)):
+            st0, sc0 = tk.start_tokens(g, x.shape[0], kcap)
+            toks.append(tk.token_pass(expanders[name](g), x, np.full(x.shape[0], x.shape[1]),
+                                      st0, sc0, beam, kcap)[2:5])
+        same = all(torch.equal(bits(c[:200, :2].cpu()), bits(h))
+                   for c, h in zip(toks[0], toks[1]))
+        if name == "split":
+            w_card = sd.decode_batch_split(sg, ll[:2, :200], [200, 200], kcap=kcap, beam=beam,
+                                           eg=eg)
+            w_cpu = sd.decode_batch_split(cpu_graphs[name], ll_cpu, [200, 200], kcap=kcap,
+                                          beam=beam, eg=eg)
+        else:
+            w_card = tk.decode_batch(tg, ll[:2, :200], [200, 200], kcap=kcap, beam=beam)
+            w_cpu = tk.decode_batch(cpu_graphs[name], ll_cpu, [200, 200], kcap=kcap, beam=beam)
+        same_words = torch.equal(w_card[0], w_cpu[0]) and torch.equal(bits(w_card[1]),
+                                                                      bits(w_cpu[1]))
+        print(f"decode {name} card vs CPU plain path (utterances 0-1, frames 0-199): token "
+              f"states, arcs and scores bitwise equal {same}; words and scores equal "
+              f"{same_words}")
+        check(same and same_words, f"decode {name}: the card differs from the CPU plain path")
+
+    # in-domain gate (tests/test_lvcsr.py's): V=300 graph, synthetic AM, 0 WER
+    rng0 = np.random.default_rng(cfg300.seed)
+    lex = lvcsr.make_lexicon(cfg300.vocab_size, rng0)
+    text = lvcsr.make_text(sorted(lex), cfg300.n_tokens, cfg300.branching, rng0)
+    rng5 = np.random.default_rng(5)
+    am = lvcsr.synthetic_am(task300).to(dev)
+    tg300 = tk.build_token_graph(task300.graph, device=dev)
+    sg300 = sd.build_split_graph(task300.graph, a0=2, device=dev)
+    errors = {"dense": 0, "split": 0}
+    for sent in [s_[:5] for s_ in text[:4]]:
+        feats = lvcsr.synthesize_utterance(task300, sent, rng5)
+        ll300 = gmm.loglik(am, torch.as_tensor(feats, device=dev))
+        hyp_d = tk.decode(tg300, ll300, kcap=256, beam=60.0)[0]
+        hyp_s = sd.decode_split(sg300, ll300, kcap=256, beam=60.0, eg=896)[0]
+        for name, hyp in (("dense", hyp_d), ("split", hyp_s)):
+            words = [task300.words.name(int(w)) for w in hyp if w]
+            errors[name] += int(words != sent)
+    print(f"in-domain gate V=300 ({task300.graph.num_states} states), 4 sentences of 5 "
+          f"words: sentences with errors {errors}")
+    check(errors == {"dense": 0, "split": 0}, "in-domain decode gate")
+
+    # streaming: front end + chunked decode against the offline decode
+    pipe_s = DsrPipeline(fb=cfg, geometry=ArrayGeometry.circular(8, 0.10),
+                         beamformer=BeamformerConfig(kind="mvdr"))
+    rs = np.random.default_rng(6)
+    am_s = gmm.GmmParams(rs.standard_normal((task300.num_pdfs, 2, 13)) * 3,
+                         (0.5 + rs.random((task300.num_pdfs, 2, 13))) * 5,
+                         np.log(np.full((task300.num_pdfs, 2), 0.5))).to(dev)
+    x_s = rs.standard_normal((8, int(2 * SR))).astype(np.float32)
+    Y_off = pipe_s.beamform_subbands(fb.analysis(torch.as_tensor(x_s, device=dev), cfg),
+                                     SOURCE)[0]
+    f_off = ft.mfcc_from_subbands(Y_off, cfg.M, SR)
+    cep_mean = f_off.mean(dim=0).cpu().numpy()
+    ol_off, sc_off = tk.decode(tg300, gmm.loglik(am_s, f_off - torch.as_tensor(cep_mean,
+                                                                                device=dev)))
+    words_off = [int(w) for w in ol_off if w]
+    cuts = [0, 1500, 5000, 5600, 12000, 20000, x_s.shape[-1]]
+    chunks = [x_s[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    rec = StreamingRecognizer(pipe_s, lambda f: gmm.loglik(am_s, f), tg300, SOURCE,
+                              cep_mean=cep_mean)
+    words_s, score_s = counted("streaming", lambda: rec.run(chunks),
+                               {"analysis": len(chunks), "select": Y_off.shape[0]})
+    print(f"streaming recogniser ({len(chunks)} ragged chunks, {Y_off.shape[0]} frames): "
+          f"{len(words_s)} words, equal to the offline decode's {words_s == words_off}; "
+          f"score {score_s:.3f} vs offline {float(sc_off):.3f}")
+    check(words_s == words_off and abs(score_s - float(sc_off)) < 0.1,
+          "streamed words equal the offline decode")
+    print(f"main path launches, all paths: {counts}")
+
     kernels = []
     replaces = {"analysis": "dsr_tpu/ops/pallas/filterbank.py:188",
                 "analysis_beamform": "dsr_tpu/ops/pallas/filterbank.py:338",
-                "synthesis": "dsr_tpu/ops/pallas/filterbank.py:710"}
-    for name in ("analysis", "analysis_beamform", "synthesis"):
+                "synthesis": "dsr_tpu/ops/pallas/filterbank.py:710",
+                "select": "dsr_tpu/ops/pallas/select.py:221"}
+    for name in ("analysis", "analysis_beamform", "synthesis", "select"):
         r = record[name]
+        source = "select.cu" if name == "select" else "filterbank.cu"
         kernels.append({"name": name, "route": "cuda",
-                        "source": "dsr_tpu_torch/ops/cuda/csrc/filterbank.cu",
+                        "source": f"dsr_tpu_torch/ops/cuda/csrc/{source}",
                         "replaces": replaces[name], "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from dsr_tpu_torch.asr.am.gmm import GmmParams
+from dsr_tpu_torch.asr.fsm.packed import PackedGraph
 
 
 def gmm_params(p, device=None) -> GmmParams:
@@ -18,6 +19,15 @@ def gmm_params(p, device=None) -> GmmParams:
     means, variances, logweights = p
     return GmmParams(np.asarray(means), np.asarray(variances), np.asarray(logweights)).to(
         device or "cpu")
+
+
+def packed_graph(g) -> PackedGraph:
+    """`dsr_tpu.asr.fsm.packed.PackedGraph` → the port's, with its arrays
+    copied (src, pdf, olabel, dst int32; weight, final_weight float32)."""
+    i32 = lambda a: np.array(a, np.int32)  # noqa: E731
+    return PackedGraph(i32(g.src), i32(g.pdf), i32(g.olabel), np.array(g.weight, np.float32),
+                       i32(g.dst), int(g.start), np.array(g.final_weight, np.float32),
+                       int(g.num_states))
 
 
 def beamformer_weights(w, device=None) -> torch.Tensor:

@@ -1,9 +1,12 @@
-"""Build `csrc/filterbank.cu` into a shared library, at first use.
+"""Build the port's native sources into shared libraries, at first use.
 
-The source has a plain C interface and is compiled by `nvcc` for Hopper
-(`sm_90a`) into `_build/libfilterbank-<hash>.so`, where the hash covers the
-source and the flags, so an edited source is rebuilt and a built one is
-reused.  `library()` builds it if needed and loads it with ctypes.
+Each source has a plain C interface and becomes one library,
+`_build/lib<name>-<hash>.so`, where the hash covers the source and the
+flags, so an edited source is rebuilt and a built one is reused.  The CUDA
+sources (`csrc/*.cu`) are compiled by `nvcc` for Hopper (`sm_90a`); the
+WFST core (`asr/fsm/csrc/wfst.cpp`, host code) by `g++` with the flags of
+`native/Makefile`.  `library(name)` builds a source if needed and loads it
+with ctypes; a failed build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -16,12 +19,19 @@ import pathlib
 import shutil
 import subprocess
 
-SOURCE = pathlib.Path(__file__).parent / "csrc" / "filterbank.cu"
+PACKAGE = pathlib.Path(__file__).resolve().parents[2]
 BUILD_DIR = pathlib.Path(__file__).parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
+# name -> (source, compiler)
+SOURCES = {
+    "filterbank": (PACKAGE / "ops" / "cuda" / "csrc" / "filterbank.cu", "nvcc"),
+    "select": (PACKAGE / "ops" / "cuda" / "csrc" / "select.cu", "nvcc"),
+    "wfst": (PACKAGE / "asr" / "fsm" / "csrc" / "wfst.cpp", "g++"),
+}
 
 
 def nvcc() -> str:
@@ -36,34 +46,52 @@ def nvcc() -> str:
     return found
 
 
-def target() -> pathlib.Path:
-    """Where the library for the current source and flags is (or will be) built."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libfilterbank-{digest.hexdigest()[:16]}.so"
+def gxx() -> str:
+    """The host C++ compiler: $CXX, or `g++` on PATH."""
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise RuntimeError("g++ not found: the WFST core needs a C++17 compiler (set CXX)")
+    return found
 
 
-def build() -> tuple[pathlib.Path, str]:
-    """Compile the source unless it is built already.
+def _command(name: str) -> list[str]:
+    source, compiler = SOURCES[name]
+    if compiler == "nvcc":
+        return [nvcc(), *NVCC_FLAGS, str(source)]
+    return [gxx(), *GXX_FLAGS, str(source)]
+
+
+def target(name: str) -> pathlib.Path:
+    """Where the library of source `name` for its current text and flags is
+    (or will be) built."""
+    source, compiler = SOURCES[name]
+    flags = NVCC_FLAGS if compiler == "nvcc" else GXX_FLAGS
+    digest = hashlib.sha256(" ".join(flags).encode())
+    digest.update(source.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> tuple[pathlib.Path, str]:
+    """Compile source `name` unless it is built already.
 
     Returns (library path, compiler output); the output is empty when the
     library was already built.  Raises with the compiler's output if it fails.
     """
-    path = target()
+    path = target(name)
     if path.exists():
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
+    proc = subprocess.run([*_command(name), "-o", str(tmp)], capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name} (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"building {SOURCES[name][0].name} failed "
+                           f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, path)
     return path, log
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The built filterbank kernels, loaded (built first if needed)."""
-    return ctypes.CDLL(str(build()[0]))
+def library(name: str) -> ctypes.CDLL:
+    """The built library of source `name`, loaded (built first if needed)."""
+    return ctypes.CDLL(str(build(name)[0]))

@@ -1,0 +1,276 @@
+// Token recombination + beam prune + top-K select for Hopper (sm_90a), the
+// per-frame selection of the top-K token-passing decoders.  Plain C
+// interface, loaded with ctypes by dsr_tpu_torch/ops/cuda/select.py; the
+// entry point launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError() (or kNoFit for a shape it does not take).
+//
+// Replaces dsr_tpu/ops/pallas/select.py:221 _select_kernel (1-best mode;
+// the lattice mode, nlat > 0, is not ported yet).
+//
+// The function (per utterance u, over its n candidates (score, dst, arc)):
+// order by (dst asc, score desc, arc asc); the first of each dst run keeps
+// its score, the rest become NEG; keep val > max(val) - beam[u]; output the
+// top kcap by (val desc, dst asc).  Slots whose score is not above NEG/2
+// get dst 0 and arc -1.  That is the JAX decoders' sort path exactly
+// (lax.sort on (dst, -score, arc), lax.top_k), and the plain twin
+// recombine_topk_plain; the kernel only moves input values, so its output
+// equals the twin's bit for bit.  The TPU kernel approximated the function
+// (a per-lane presort into a bounded pool) and certified each frame with a
+// spill flag; this kernel sorts every candidate, so nothing spills.
+//
+// Keys: a score enters the sort as an order-preserving uint32 (sign flip),
+// with -0 mapped to +0, as lax.sort's comparator canonicalises it, so every
+// finite float (NEG + NEG from padded arc slots too) orders as the sort
+// orders it; the bit of a -0 rides beside the arc id so the output keeps
+// the input's bits.  The first sort's key is (dst << 32 | ~score) with the
+// arc id as tie-break; the second's is (~val << 32 | dst).
+//
+// What bounds it on this card: the function needs to read 12 bytes per
+// candidate and write 12 per kept token, so bytes bound it (at 3.35 TB/s a
+// frame of 8 x 12,032 candidates needs 0.35 us).  This first version is far
+// from that: each block sorts its whole chunk twice with a bitonic network
+// in shared memory (log2(n)(log2(n)+1)/2 compare-exchange stages, each
+// ending in a barrier), and a frame of 8 utterances fills only 8 of the 132
+// SMs.  The design answers the bound only in that every candidate is read
+// from device memory once and every output written once: all sorting
+// happens in shared memory.
+//
+// Layout: one block per (chunk of at most `chunk` candidates, utterance),
+// 1024 threads.  With one chunk (n <= chunk; every pool of the split
+// decoders and the dense monophone pool) one launch finishes the job.  A
+// larger pool (the dense triphone one, 512 x 263 candidates) takes two: the
+// first writes each chunk's top kcap recombined candidates, without the
+// beam, plus a flag that says whether the chunk held a duplicate dst (or
+// had to drop recombined candidates); the second runs the one-chunk routine
+// over those lists.  That is exact: a dst whose best candidate misses its
+// chunk's top kcap is beaten by kcap distinct dsts with higher keys, so it
+// cannot be in the utterance's top kcap; and the beam's max is the best
+// candidate, which every chunk list keeps.  The flags reproduce the NEG
+// that recombined losers add to max(val); they are set conservatively on a
+// dropped candidate, which matters only when every candidate lies below
+// NEG and the beam exceeds ~1e22.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNeg = -1e30f;
+constexpr int kThreads = 1024;
+constexpr int kMaxChunk = 16384;      // 13 bytes each in shared memory: 208 KB
+constexpr int kNoFit = -1;
+constexpr uint64_t kNoKey = ~0ull;    // padding and dropped slots sort last
+constexpr uint32_t kNoPay = ~0u;
+
+__device__ __forceinline__ uint32_t ordered(float x) {
+  uint32_t b = __float_as_uint(x);
+  if (b == 0x80000000u) b = 0u;  // -0 ties +0
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+__device__ __forceinline__ float unordered(uint32_t u, uint32_t negzero) {
+  if (negzero) return -0.0f;
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ uint32_t negzero(float x) {
+  return __float_as_uint(x) == 0x80000000u ? 1u : 0u;
+}
+
+// Ascending bitonic sort of (key, pay) pairs, n a power of two.
+__device__ void bitonic(uint64_t* key, uint32_t* pay, int n) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
+        const int i = 2 * t - (t & (j - 1));
+        const int l = i + j;
+        const uint64_t ki = key[i], kl = key[l];
+        const uint32_t pi = pay[i], pl = pay[l];
+        const bool greater = ki > kl || (ki == kl && pi > pl);
+        if (greater == ((i & k) == 0)) {
+          key[i] = kl;
+          key[l] = ki;
+          pay[i] = pl;
+          pay[l] = pi;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+__device__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    v = threadIdx.x < (blockDim.x >> 5) ? red[threadIdx.x] : -INFINITY;
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (threadIdx.x == 0) red[32] = v;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+// partial: write the chunk's top kcap recombined candidates (dst -1 marks an
+// empty slot) and its flag; otherwise beam-prune and write the final slots.
+// dup_in (final pass of a two-pass call): n_dup flags per utterance.
+__global__ void __launch_bounds__(kThreads)
+select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
+              const int* __restrict__ arc, const float* __restrict__ beam,
+              const int* __restrict__ dup_in, int n_dup, int n, int chunk, int cap,
+              int kcap, int partial, float* __restrict__ out_s, int* __restrict__ out_d,
+              int* __restrict__ out_a, int* __restrict__ dup_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint64_t* key = reinterpret_cast<uint64_t*>(smem);
+  uint32_t* pay = reinterpret_cast<uint32_t*>(smem + 8 * static_cast<size_t>(cap));
+  unsigned char* flag = smem + 12 * static_cast<size_t>(cap);
+  float* red = reinterpret_cast<float*>(smem + 13 * static_cast<size_t>(cap));
+
+  const int c = blockIdx.x, u = blockIdx.y, nchunks = gridDim.x;
+  const int lo = c * chunk;
+  const int m = min(n - lo, chunk);
+  int np2 = 32;
+  while (np2 < m) np2 <<= 1;
+  const size_t row = static_cast<size_t>(u) * n + lo;
+
+  // load; a dst of -1 is an empty slot of a first pass's list
+  for (int i = threadIdx.x; i < np2; i += blockDim.x) {
+    uint64_t k = kNoKey;
+    uint32_t p = kNoPay;
+    if (i < m) {
+      const int d = dst[row + i];
+      if (d != -1) {
+        const float s = score[row + i];
+        k = (static_cast<uint64_t>(static_cast<uint32_t>(d)) << 32) | ~ordered(s);
+        p = (static_cast<uint32_t>(arc[row + i]) << 1) | negzero(s);
+      }
+    }
+    key[i] = k;
+    pay[i] = p;
+  }
+  __syncthreads();
+  bitonic(key, pay, np2);   // by (dst, score desc, arc)
+
+  // mark each run's first; max over val = first ? score : NEG
+  float vmax = -INFINITY;
+  int dup = 0;
+  for (int i = threadIdx.x; i < np2; i += blockDim.x) {
+    const uint64_t k = key[i];
+    const bool valid = k != kNoKey;
+    const bool first = valid && (i == 0 || (k >> 32) != (key[i - 1] >> 32));
+    flag[i] = first ? 1 : 0;
+    if (valid) vmax = fmaxf(vmax, first ? unordered(~static_cast<uint32_t>(k), pay[i] & 1u) : kNeg);
+    dup |= valid && !first;
+  }
+  dup = __syncthreads_or(dup);
+  float thr = 0.0f;
+  if (!partial) {
+    float mx = block_max(vmax, red);
+    bool neg_in_max = false;
+    if (dup_in != nullptr)
+      for (int j = 0; j < n_dup; ++j) neg_in_max |= dup_in[u * n_dup + j] != 0;
+    if (neg_in_max) mx = fmaxf(mx, kNeg);
+    thr = mx - beam[u];
+  }
+
+  // re-key in place for the second sort: (val desc, dst asc)
+  for (int i = threadIdx.x; i < np2; i += blockDim.x) {
+    const uint64_t k = key[i];
+    if (k == kNoKey) continue;
+    const uint32_t d = static_cast<uint32_t>(k >> 32);
+    const uint32_t a = pay[i] >> 1;
+    const float s = unordered(~static_cast<uint32_t>(k), pay[i] & 1u);
+    uint64_t k2 = kNoKey;
+    uint32_t p2 = kNoPay;
+    if (partial) {
+      if (flag[i]) {
+        k2 = (static_cast<uint64_t>(~ordered(s)) << 32) | d;
+        p2 = (a << 1) | negzero(s);
+      }
+    } else {
+      float v = flag[i] ? s : kNeg;
+      if (!(v > thr)) v = kNeg;
+      k2 = (static_cast<uint64_t>(~ordered(v)) << 32) | d;
+      p2 = (a << 1) | negzero(v);
+    }
+    key[i] = k2;
+    pay[i] = p2;
+  }
+  __syncthreads();
+  bitonic(key, pay, np2);
+
+  const size_t orow = partial ? (static_cast<size_t>(u) * nchunks + c) * kcap
+                              : static_cast<size_t>(u) * kcap;
+  for (int j = threadIdx.x; j < kcap; j += blockDim.x) {
+    const uint64_t k = j < np2 ? key[j] : kNoKey;
+    float s = kNeg;
+    int d = partial ? -1 : 0, a = -1;
+    if (k != kNoKey) {
+      s = unordered(static_cast<uint32_t>(~(k >> 32)), pay[j] & 1u);
+      if (partial || s > kNeg / 2) {
+        d = static_cast<int>(static_cast<uint32_t>(k));
+        a = static_cast<int>(pay[j] >> 1);
+      }
+    }
+    out_s[orow + j] = s;
+    out_d[orow + j] = d;
+    out_a[orow + j] = a;
+  }
+  if (partial && threadIdx.x == 0)
+    dup_out[u * nchunks + c] = dup || (kcap < np2 && key[kcap] != kNoKey);
+}
+
+size_t smem_bytes(int cap) { return 13 * static_cast<size_t>(cap) + 33 * sizeof(float); }
+
+}  // namespace
+
+extern "C" {
+
+// score (U, n) f32, dst and arc (U, n) i32, beam (U,) f32 -> out_s (U, kcap)
+// f32, out_d and out_a (U, kcap) i32.  chunk: candidates per block, a power
+// of two <= kMaxChunk.  When n > chunk the caller passes scratch for the
+// first pass: tmp_s/tmp_d/tmp_a (U, ceil(n / chunk) * kcap) and tmp_dup
+// (U, ceil(n / chunk)); their lists must fit one block (<= chunk).
+int dsr_select(const float* score, const int* dst, const int* arc, const float* beam,
+               int U, int n, int kcap, int chunk, float* out_s, int* out_d, int* out_a,
+               float* tmp_s, int* tmp_d, int* tmp_a, int* tmp_dup, void* stream) {
+  if (U < 1 || n < 1 || kcap < 1 || chunk < 32 || chunk > kMaxChunk || (chunk & (chunk - 1)))
+    return kNoFit;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nchunks = (n + chunk - 1) / chunk;
+  const int n2 = nchunks * kcap;
+  if (nchunks > 1 && n2 > chunk) return kNoFit;
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(select_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes(kMaxChunk)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr = true;
+  }
+  auto cap_of = [](int len) {
+    int c = 32;
+    while (c < len) c <<= 1;
+    return c;
+  };
+  if (nchunks == 1) {
+    const int cap = cap_of(n);
+    select_kernel<<<dim3(1, U), kThreads, smem_bytes(cap), st>>>(
+        score, dst, arc, beam, nullptr, 0, n, chunk, cap, kcap, 0, out_s, out_d, out_a,
+        nullptr);
+    return static_cast<int>(cudaGetLastError());
+  }
+  select_kernel<<<dim3(nchunks, U), kThreads, smem_bytes(chunk), st>>>(
+      score, dst, arc, beam, nullptr, 0, n, chunk, chunk, kcap, 1, tmp_s, tmp_d, tmp_a,
+      tmp_dup);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int cap = cap_of(n2);
+  select_kernel<<<dim3(1, U), kThreads, smem_bytes(cap), st>>>(
+      tmp_s, tmp_d, tmp_a, beam, tmp_dup, nchunks, n2, chunk, cap, kcap, 0, out_s, out_d,
+      out_a, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

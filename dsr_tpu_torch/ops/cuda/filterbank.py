@@ -24,6 +24,7 @@ import functools
 import torch
 
 from dsr_tpu_torch.ops.cuda import build
+from dsr_tpu_torch.ops.cuda.launch import check, on_cuda, stream
 
 # Kernel launches since the last `reset_launches()`, by kernel.
 launches = {"analysis": 0, "analysis_beamform": 0, "synthesis": 0}
@@ -80,7 +81,7 @@ def synthesis_plain(A: torch.Tensor, gf: torch.Tensor, M: int, r: int, start: in
 
 @functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
-    lib = build.library()
+    lib = build.library("filterbank")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dsr_fb_analysis.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
@@ -88,23 +89,6 @@ def _kernels() -> ctypes.CDLL:
     for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform, lib.dsr_fb_synthesis):
         fn.restype = ctypes.c_int
     return lib
-
-
-def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds != {"cuda"} or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name}: tensors must all be on one CUDA device or all on "
-                         f"the CPU, got {[str(t.device) for t in tensors]}")
-    return True
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape {shape}, "
-                         f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
 def _raise_on(rc: int, name: str, M: int, m: int, r: int) -> None:
@@ -115,23 +99,19 @@ def _raise_on(rc: int, name: str, M: int, m: int, r: int) -> None:
         raise RuntimeError(f"{name} kernel failed to launch: CUDA error {rc}")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 def analysis(x: torch.Tensor, hf: torch.Tensor, M: int, m: int, r: int, T: int) -> torch.Tensor:
     """x (C, S) float32, hf (m·M,) float32 → (C, T, M//2+1) complex64."""
-    if not _on_cuda("analysis", x, hf):
+    if not on_cuda("analysis", x, hf):
         return analysis_plain(x, hf, M, r, T)
     C, S = x.shape
     K, D = M // 2 + 1, M // r
-    _check("analysis x", x, torch.float32, (C, S))
-    _check("analysis hf", hf, torch.float32, (m * M,))
+    check("analysis x", x, torch.float32, (C, S))
+    check("analysis hf", hf, torch.float32, (m * M,))
     out = torch.empty((C, T, K), dtype=torch.complex64, device=x.device)
     if out.numel() == 0:
         return out
     rc = _kernels().dsr_fb_analysis(x.data_ptr(), hf.data_ptr(), out.data_ptr(),
-                                    C, S, T, M, m, D, _stream())
+                                    C, S, T, M, m, D, stream())
     _raise_on(rc, "analysis", M, m, r)
     launches["analysis"] += 1
     return out
@@ -141,18 +121,18 @@ def analysis_beamform(x: torch.Tensor, hf: torch.Tensor, w: torch.Tensor,
                              M: int, m: int, r: int, T: int) -> torch.Tensor:
     """x (C, S) float32, hf (m·M,) float32, w (K, C) complex64 → (T, K)
     complex64, equal to `apply_weights(analysis(x), w)`."""
-    if not _on_cuda("analysis_beamform", x, hf, w):
+    if not on_cuda("analysis_beamform", x, hf, w):
         return analysis_beamform_plain(x, hf, w, M, r, T)
     C, S = x.shape
     K, D = M // 2 + 1, M // r
-    _check("analysis_beamform x", x, torch.float32, (C, S))
-    _check("analysis_beamform hf", hf, torch.float32, (m * M,))
-    _check("analysis_beamform w", w, torch.complex64, (K, C))
+    check("analysis_beamform x", x, torch.float32, (C, S))
+    check("analysis_beamform hf", hf, torch.float32, (m * M,))
+    check("analysis_beamform w", w, torch.complex64, (K, C))
     y = torch.empty((T, K), dtype=torch.complex64, device=x.device)
     if C == 0:
         return y.zero_()
     rc = _kernels().dsr_fb_analysis_beamform(x.data_ptr(), hf.data_ptr(), w.data_ptr(),
-                                             y.data_ptr(), C, S, T, M, m, D, _stream())
+                                             y.data_ptr(), C, S, T, M, m, D, stream())
     _raise_on(rc, "analysis_beamform", M, m, r)
     launches["analysis_beamform"] += 1
     return y
@@ -162,12 +142,12 @@ def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: 
               out_len: int) -> torch.Tensor:
     """A (C, T, M//2+1) complex64, gf (m·M,) float32 → (C, out_len) float32;
     output sample j is padded-stream sample start + j."""
-    if not _on_cuda("synthesis", A, gf):
+    if not on_cuda("synthesis", A, gf):
         return synthesis_plain(A, gf, M, r, start, out_len)
     C, T, K = A.shape
     D = M // r
-    _check("synthesis A", A, torch.complex64, (C, T, M // 2 + 1))
-    _check("synthesis gf", gf, torch.float32, (m * M,))
+    check("synthesis A", A, torch.complex64, (C, T, M // 2 + 1))
+    check("synthesis gf", gf, torch.float32, (m * M,))
     if start < 0 or start + out_len > (T - 1) * D + m * M:
         raise ValueError(f"synthesis: samples [{start}, {start + out_len}) lie outside "
                          f"the {(T - 1) * D + m * M}-sample output stream")
@@ -175,7 +155,7 @@ def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: 
     if y.numel() == 0:
         return y
     rc = _kernels().dsr_fb_synthesis(A.data_ptr(), gf.data_ptr(), y.data_ptr(), C, T, M, m,
-                                     D, start, out_len, _stream())
+                                     D, start, out_len, stream())
     _raise_on(rc, "synthesis", M, m, r)
     launches["synthesis"] += 1
     return y

@@ -10,8 +10,13 @@ unless `device` names another (`device="cpu"` runs the plain path).
                        beamformer=BeamformerConfig(kind="mvdr"))
     y, feats = pipe.process(x_multi, source_pos=np.array([0., 2., 0.]))
 
-Not ported yet (ROADMAP): the GSC beamformer, the post-filters, WPE
-dereverberation, and the streaming API with its recogniser.
+Streaming: `process_streaming` (enhanced waveform chunks),
+`process_streaming_subbands` (mature beamformed subband frames, equal to
+offline `process`'s) and `StreamingRecognizer` (audio chunks in, words
+out through the top-K decoder's chunked decode).
+
+Not ported yet (ROADMAP): the GSC beamformer, the post-filters and WPE
+dereverberation.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from dsr_tpu_torch.asr.decoder import topk_decoder as tk
 from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig, FrontendConfig
 from dsr_tpu_torch.ops import beamforming as bf
 from dsr_tpu_torch.ops import features as ft
@@ -100,3 +106,126 @@ class DsrPipeline:
         if self.frontend.cmn:
             feats = ft.cmn(feats)
         return y, feats
+
+    def _subbands(self, buf: np.ndarray, source_pos: np.ndarray) -> torch.Tensor:
+        A = fb.analysis(torch.as_tensor(buf, device=self.device), self.fb)
+        return self.beamform_subbands(A, source_pos)[0]
+
+    def process_streaming(self, chunks, source_pos: np.ndarray):
+        """Iterate (N, block) chunks → yields enhanced (block,) chunks.
+
+        Chunked streaming: each chunk is analysed with L samples of carried
+        history so boundary-straddling frames are recomputed; for the fixed
+        beamformers the concatenated output matches offline processing to
+        filterbank precision."""
+        L = self.fb.L
+        buf = None          # trailing input kept for context: last 2L samples
+        emitted = 0         # samples emitted, in global coordinates
+        consumed = 0        # input samples consumed, global
+        for chunk in chunks:
+            chunk = np.asarray(chunk, np.float32)
+            buf = chunk if buf is None else np.concatenate([buf, chunk], axis=-1)
+            consumed += chunk.shape[-1]
+            buf_start = consumed - buf.shape[-1]
+            y = fb.synthesis(self._subbands(buf, source_pos), self.fb, buf.shape[-1])
+            mature_end = consumed - L  # needs >= L future samples to be final
+            if mature_end > emitted:
+                yield y[emitted - buf_start: mature_end - buf_start]
+                emitted = mature_end
+            keep = min(2 * L, buf.shape[-1])
+            buf = buf[..., -keep:]
+        if buf is not None and consumed > emitted:  # flush the tail
+            buf_start = consumed - buf.shape[-1]
+            y = fb.synthesis(self._subbands(buf, source_pos), self.fb, buf.shape[-1])
+            yield y[emitted - buf_start:]
+
+    def process_streaming_subbands(self, chunks, source_pos: np.ndarray):
+        """Iterate (N, block) chunks → yields mature beamformed subband
+        frames (Tc, K) complex64, frame-exact against offline analysis.
+
+        Frame g of the offline analysis covers x[g·D−P, g·D−P+L); it is
+        emitted once its window lies inside the consumed input.  The carried
+        buffer keeps >= 2L samples trimmed to a D-aligned global offset, so
+        re-analysed boundary frames see exactly the offline window (the
+        chunk-local zero pad only touches frames already emitted)."""
+        D, L = self.fb.D, self.fb.L
+        buf = None
+        consumed = 0
+        emitted_f = 0           # global frames emitted
+        chunks = iter(chunks)
+        pending = next(chunks, None)
+        while pending is not None:
+            chunk = np.asarray(pending, np.float32)
+            pending = next(chunks, None)
+            buf = chunk if buf is None else np.concatenate([buf, chunk], axis=-1)
+            consumed += chunk.shape[-1]
+            buf_start = consumed - buf.shape[-1]
+            Y = self._subbands(buf, source_pos)
+            if pending is None:
+                mf = buf_start // D + Y.shape[-2]  # flush: all local frames
+            else:
+                mf = consumed // D                 # fully windowed frames only
+            lo = emitted_f - buf_start // D
+            hi = mf - buf_start // D
+            if hi > lo:
+                yield Y[..., lo:hi, :]
+                emitted_f = mf
+            keep = min(buf.shape[-1], 2 * L + (consumed % D))
+            buf = buf[..., -keep:]
+
+
+class StreamingRecognizer:
+    """Streaming recognition: multichannel audio chunks in, words out, equal
+    to the whole-utterance decode.
+
+    The carried state is the front end's sample buffer and the decoder's
+    (states, scores) token carry; everything else is frame-local.  Token
+    tables accumulate per chunk; `finish()` runs the utterance-final
+    traceback.
+
+    `loglik_fn`: features (T, D) → (T, P) acoustic log-likelihoods (e.g.
+    `functools.partial(gmm.loglik, params)`).  `cep_mean`: fixed cepstral
+    mean to subtract (utterance-level CMN is not causal).  The decoder
+    graph `token_graph` lies on the pipeline's device.
+    """
+
+    def __init__(self, pipe: DsrPipeline, loglik_fn, token_graph: tk.TokenGraph,
+                 source_pos: np.ndarray, kcap: int = 256, beam: float = 1e9,
+                 cep_mean: np.ndarray | None = None):
+        self.pipe = pipe
+        self.loglik_fn = loglik_fn
+        self.graph = token_graph
+        self.source_pos = np.asarray(source_pos)
+        self.kcap = min(kcap, token_graph.num_states)
+        self.beam = beam
+        self.cep_mean = (None if cep_mean is None else
+                         torch.as_tensor(np.asarray(cep_mean, np.float32), device=pipe.device))
+        self.carry = tk.stream_start(token_graph, self.kcap)
+        self._toks: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+    def _feats(self, Y: torch.Tensor) -> torch.Tensor:
+        fe = self.pipe.frontend
+        f = ft.mfcc_from_subbands(
+            Y, self.pipe.fb.M, fe.sample_rate, num_mel=fe.num_mel,
+            num_cepstra=fe.num_cepstra, fmin=fe.fmin, fmax=fe.fmax,
+            vtln_warp=fe.vtln_warp,
+        )
+        return f if self.cep_mean is None else f - self.cep_mean
+
+    def run(self, chunks):
+        """Consume an iterable of (N, block) chunks; returns (words (olabel
+        ids), score), identical to decoding the concatenated utterance
+        offline with the same fixed cep_mean."""
+        for Y in self.pipe.process_streaming_subbands(chunks, self.source_pos):
+            ll = self.loglik_fn(self._feats(Y))
+            self.carry, toks = tk.decode_chunk(self.graph, ll, self.carry, self.kcap, self.beam)
+            self._toks.append((toks[0], toks[1]))
+        return self.finish()
+
+    def finish(self):
+        if not self._toks:
+            return [], float("-inf")   # no audio consumed
+        tok_states = torch.cat([t for t, _ in self._toks], dim=0)
+        tok_arcs = torch.cat([a for _, a in self._toks], dim=0)
+        olabs, score = tk.traceback(self.graph, tok_states, tok_arcs, self.carry)
+        return [int(w) for w in olabs if w], float(score)

@@ -57,3 +57,57 @@ def subbands(rng, N=8, T=40, K=M // 2 + 1):
     return (rng.standard_normal((N, T, K)) + 1j * rng.standard_normal((N, T, K))).astype(
         np.complex64
     )
+
+
+# ---------------------------------------------------------------- the decode
+
+NEG = -1e30
+
+
+def ref_select(cand, fdst, arcs, beam, kcap):
+    """Copy of tests/test_pallas_select.py's NumPy transcription of the JAX
+    decoders' sort path: lexicographic sort-recombine, beam, exact top-k.
+    Returns (scores, dst, arc) of the kept tokens, dead slots NEG."""
+    order = np.lexsort((arcs, -cand, fdst))
+    sd, sv, sa = fdst[order], cand[order], arcs[order]
+    first = np.r_[True, sd[1:] != sd[:-1]]
+    val = np.where(first, sv, NEG)
+    mx = val.max()
+    val = np.where(val > mx - beam, val, NEG)
+    top = np.argsort(-val, kind="stable")[:kcap]
+    return val[top], sd[top], sa[top]
+
+
+def select_case(seed, U, N, ndst, grid=4.0, pad=0.2):
+    """Candidates as the decoders make them: duplicate destinations, exact
+    score ties (scores on a 1/grid grid), NEG + NEG from padded arc slots."""
+    rng = np.random.default_rng(seed)
+    c = (np.round(rng.standard_normal((U, N)) * 10 * grid) / grid).astype(np.float32)
+    c[rng.random((U, N)) < pad] = np.float32(NEG) + np.float32(NEG)
+    d = rng.integers(0, ndst, (U, N)).astype(np.int32)
+    a = rng.permutation(U * N).reshape(U, N).astype(np.int32)
+    return c, d, a
+
+
+def lvcsr_v300():
+    """The JAX package's V=300 trigram task (68,551 states; cached by its
+    build_task) and the same graph carried across to the port."""
+    from dsr_tpu.asr import lvcsr
+    from dsr_tpu_torch import convert
+
+    task = lvcsr.build_task(lvcsr.LvcsrConfig(vocab_size=300, n_tokens=5000, branching=3))
+    return task, convert.packed_graph(task.graph)
+
+
+def logliks(rng, shape, rounded: bool):
+    """Random log-likelihoods; `rounded` puts them on a 2^-6 grid with
+    |ll| < 2^9, where the JAX decoder's hi/lo-bf16 acoustic lookup
+    (`_split_mm`, 16 mantissa bits) is exact."""
+    ll = (rng.standard_normal(shape) * 3).astype(np.float32)
+    if rounded:
+        ll = (np.round(ll * 64) / 64).astype(np.float32)
+    return ll
+
+
+def words(olabels) -> list[int]:
+    return [int(w) for w in np.asarray(olabels) if w]

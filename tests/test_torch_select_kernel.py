@@ -1,0 +1,127 @@
+"""The select kernel's plain twin against the Pallas select kernel, and
+the CUDA kernel's block routine (`ops/cuda/csrc/select.cu`: its keys and
+its two-pass split of large pools), transcribed to NumPy, against the twin.
+The kernel itself is held to the twin on the card by chip_smoke.py.
+
+Tolerance: none.  The function only moves its input values, so outputs
+must be equal bit for bit (the Pallas kernel's as a set of kept tokens).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from _torch_parity import NEG, select_case
+from dsr_tpu.ops.pallas import select as psel
+from dsr_tpu_torch.ops.cuda import select as sel
+
+F32NEG = np.float32(NEG)
+
+
+def test_twin_matches_pallas_kernel():
+    """The Pallas select kernel (interpret mode) at N = 2,048, kcap 128:
+    with spill False it certifies the sort path's result, so the twin's
+    kept (dst, score, arc) triples must be the same."""
+    c, d, a = select_case(7, 1, 2048, 700)
+    ks, kd, ka, spill = psel.recombine_topk(jnp.asarray(c[0]), jnp.asarray(d[0]),
+                                            jnp.asarray(a[0]), jnp.float32(40.0), kcap=128)
+    assert not bool(spill)
+    s, dd, aa = sel.recombine_topk(*(torch.as_tensor(x) for x in (c, d, a)), 40.0, 128)
+    triples = lambda s_, d_, a_: sorted(  # noqa: E731
+        (int(x), float(y), int(z)) for x, y, z in zip(d_, s_, a_) if y > NEG / 2)
+    assert triples(s[0].numpy(), dd[0].numpy(), aa[0].numpy()) == triples(
+        np.asarray(ks), np.asarray(kd), np.asarray(ka))
+
+
+# ------------------------------------------- select.cu's blocks, in NumPy
+
+_NOKEY, _NOPAY, _LO = np.uint64(2**64 - 1), np.uint32(2**32 - 1), np.uint64(2**32 - 1)
+
+
+def _ordered(s):
+    """The kernel's order-preserving uint32 of a float (-0 as +0)."""
+    b = s.astype(np.float32).view(np.uint32).copy()
+    b[b == 0x80000000] = 0
+    return np.where(b & 0x80000000, ~b, b | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _unordered(u, negzero):
+    u = u.astype(np.uint32)
+    f = np.where(u & 0x80000000, u & np.uint32(0x7FFFFFFF), ~u).astype(np.uint32).view(np.float32)
+    return np.where(negzero.astype(bool), np.float32(-0.0), f).astype(np.float32)
+
+
+def _negzero(s):
+    return (s.astype(np.float32).view(np.uint32) == 0x80000000).astype(np.uint32)
+
+
+def _block(s, d, a, beam, dup_in, kcap, partial):
+    """One thread block of select_kernel: sort by (dst, ~score, arc), mark
+    run firsts, re-key by (~val, dst), sort, write kcap slots (+ flag)."""
+    valid = d != -1
+    key = np.full(len(s), _NOKEY, np.uint64)
+    pay = np.full(len(s), _NOPAY, np.uint32)
+    key[valid] = ((d[valid].astype(np.uint64) << np.uint64(32))
+                  | (~_ordered(s[valid])).astype(np.uint64))
+    pay[valid] = (a[valid].astype(np.uint32) << np.uint32(1)) | _negzero(s[valid])
+    o = np.lexsort((pay, key))
+    key, pay = key[o], pay[o]
+    live = key != _NOKEY
+    hi = key >> np.uint64(32)
+    first = live & np.r_[True, hi[1:] != hi[:-1]]
+    sv = _unordered((~key) & _LO, pay & 1)
+    dup = bool((live & ~first).any())
+    key2 = np.full(len(s), _NOKEY, np.uint64)
+    pay2 = np.full(len(s), _NOPAY, np.uint32)
+    if partial:
+        m, v = first, sv
+    else:
+        mx = np.where(first, sv, F32NEG)[live].max()
+        if dup_in is not None and dup_in.any():
+            mx = max(mx, F32NEG)
+        v = np.where(first, sv, F32NEG)
+        v = np.where(v > np.float32(mx) - np.float32(beam), v, F32NEG).astype(np.float32)
+        m = live
+    key2[m] = ((_ordered(v[m]).astype(np.uint64) ^ _LO) << np.uint64(32)) | hi[m]
+    pay2[m] = ((pay[m] >> np.uint32(1)) << np.uint32(1)) | _negzero(v[m])
+    o = np.lexsort((pay2, key2))
+    key2, pay2 = key2[o], pay2[o]
+    out = (np.full(kcap, F32NEG, np.float32), np.full(kcap, -1 if partial else 0, np.int32),
+           np.full(kcap, -1, np.int32))
+    n = min(kcap, len(s))
+    ok = key2[:n] != _NOKEY
+    val = _unordered((key2[:n] >> np.uint64(32)) ^ _LO, pay2[:n] & 1)
+    out[0][:n] = np.where(ok, val, F32NEG)
+    keep = ok & (partial | (val > NEG / 2))
+    out[1][:n] = np.where(keep, (key2[:n] & _LO).astype(np.int64), out[1][:n])
+    out[2][:n] = np.where(keep, (pay2[:n] >> np.uint32(1)).astype(np.int64), -1)
+    return out, dup or (kcap < len(s) and key2[kcap] != _NOKEY)
+
+
+def _kernel_in_numpy(s, d, a, beam, kcap, chunk):
+    if len(s) <= chunk:
+        return _block(s, d, a, beam, None, kcap, False)[0]
+    assert -(-len(s) // chunk) * kcap <= chunk     # as dsr_select requires
+    parts = [_block(s[i:i + chunk], d[i:i + chunk], a[i:i + chunk], beam, None, kcap, True)
+             for i in range(0, len(s), chunk)]
+    lists = [np.concatenate([p[0][j] for p in parts]) for j in range(3)]
+    return _block(*lists, beam, np.array([p[1] for p in parts]), kcap, False)[0]
+
+
+def test_kernel_blocks_in_numpy_match_twin():
+    """select.cu's key encoding and its two-pass split of a large pool
+    (per-chunk top-kcap lists and duplicate flags, then the one-pass
+    routine over the lists), transcribed to NumPy with small chunks, equal
+    the twin bit for bit."""
+    for seed, (N, kcap, ndst, chunk) in enumerate([
+            (2304, 256, 768, 16384), (5000, 32, 1700, 512), (3000, 128, 100, 1024),
+            (700, 40, 5000, 256), (20000, 256, 7000, 8192)]):
+        for beam in (40.0, 2.0, 1e9):
+            c, d, a = select_case(seed, 1, N, ndst, grid=2.0, pad=0.15)
+            c[0, ::50] = -0.0
+            got = _kernel_in_numpy(c[0], d[0], a[0], beam, kcap, chunk)
+            ref = sel.recombine_topk_plain(*(torch.as_tensor(x) for x in (c, d, a)),
+                                           torch.tensor([beam], dtype=torch.float32), kcap)
+            assert np.array_equal(got[0].view(np.uint32), ref[0][0].numpy().view(np.uint32))
+            assert np.array_equal(got[1], ref[1][0].numpy())
+            assert np.array_equal(got[2], ref[2][0].numpy())
