@@ -9,7 +9,11 @@ Phases, each of which fails the run loudly:
      (the CUDA kernels with nvcc, the WFST core with g++), each timed;
   2. every kernel against its plain PyTorch version on the card, at the
      main path's shapes and at a D = 256 config, with the time of each;
-     the select kernel at the decoders' four pool shapes, bitwise;
+     the select kernel at the decoders' four pool shapes, bitwise; the GSC
+     kernel at 1 and 8 utterances of 8 ch x 1000 frames (error at frames
+     40 / 500 / 1000, two chunks threaded through wa0 == one pass); the
+     steering kernel at 8 and 16 ch x 1000 frames, static and per-frame
+     delays;
   3. the front end's main path: `DsrPipeline.process` (MVDR) on 4 requests
      of 8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
      beamform (fused analysis+beamform -> synthesis) at 64 ch x 8 s; the
@@ -18,14 +22,24 @@ Phases, each of which fails the run loudly:
   4. the outputs: finite, card == CPU plain path on the same request,
      `entry` == its plain composition on the card, DS reconstruction
      < -50 dB; then the serving beamform's audio-seconds per second;
-  5. the decode: the bench graph (V = 2000 trigram HCLG) built by the
+  5. BASELINE config 3's tracked front end on an 8 s, 8-mic free-field
+     recording made here from a seed: GCC-PHAT TDOAs over all 28 pairs ->
+     IEKF from a displaced prior (mean steering error < 30 us) -> MVDR-
+     quiescent GSC through the GSC kernel and DS along the tracked
+     trajectory through the steering kernel -> synthesis -> MFCC + CMN,
+     counted, against the CPU plain path fed the same delays; then
+     `DsrPipeline(kind="gsc")` with the Zelinski post-filter (`process`,
+     `process_streaming`) and with WPE (`process`), card against CPU;
+  6. the decode: the bench graph (V = 2000 trigram HCLG) built by the
      port's own WFST core, the degree-split (a0 = 2, eg = 896) and dense
      batched decodes at bench.py's shape (8 x 1000 frames, kcap 256, beam
      40) with exactly 1000 select launches each and their audio-seconds
      per second; the card's tokens and words against the CPU plain path's
      (utterances 0-1, frames 0-199, bitwise); the in-domain 0-WER gate on
-     the V = 300 graph for both decoders; and the streaming recogniser
-     (front end + chunked decode) against the offline decode.
+     the V = 300 graph for both decoders; the streaming recogniser
+     (front end + chunked decode) against the offline decode; and the
+     streaming recogniser over a GSC pipeline, its subband frames against
+     the CPU plain path's.
 The last two lines are the kernels' JSON record and the verdict
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -48,6 +62,10 @@ SOURCE = np.array([0.0, 2.0, 0.0])
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM, FP32 outside the tensor cores
 TOL = 1e-5                     # max |kernel - plain| / max |plain|, as tests/test_pallas.py
+# The GSC and steering kernels' gate: tests/test_pallas.py holds their Pallas
+# versions to 1e-5 (GSC) and 1e-4 (steering); the GSC kernel's sums run in
+# another order than the twin's over 1000 dependent frames, so both get 1e-4.
+TOL_ADAPTIVE = 1e-4
 SPIN_CYCLES = 40_000_000       # GPU clock cycles the card waits before a timed loop
 NEG = -1e30                    # the decoders' dead score
 
@@ -106,12 +124,18 @@ def main() -> int:
     from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
     from dsr_tpu_torch.entry import entry
     from dsr_tpu_torch.ops import beamforming as bf
+    from dsr_tpu_torch.ops import dereverb as der
     from dsr_tpu_torch.ops import features as ft
     from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.ops import tde
+    from dsr_tpu_torch.ops import tracking as trk
     from dsr_tpu_torch.ops.cuda import build
     from dsr_tpu_torch.ops.cuda import filterbank as cfb
+    from dsr_tpu_torch.ops.cuda import gsc as cgsc
     from dsr_tpu_torch.ops.cuda import select as csel
+    from dsr_tpu_torch.ops.cuda import steering as csteer
     from dsr_tpu_torch.pipeline import DsrPipeline, StreamingRecognizer
+    from dsr_tpu_torch.utils import design
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -159,7 +183,7 @@ def main() -> int:
     # ---- 2. kernels against their plain versions ---------------------------
     record = {}
 
-    def compare(name, label, kernel, plain, nbytes, flops, library=None):
+    def compare(name, label, kernel, plain, nbytes, flops, library=None, tol=TOL):
         out = kernel()
         ref = plain()
         torch.cuda.synchronize()
@@ -167,11 +191,11 @@ def main() -> int:
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
         lib_ms = cuda_ms(library) if library is not None else None
         b_ms, b_by = bound(nbytes, flops)
-        print(f"{name:18s} {label:34s} rel err {err:.2e} (bound {TOL:.0e})  kernel "
+        print(f"{name:18s} {label:34s} rel err {err:.2e} (bound {tol:.0e})  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms "
               f"({b_by})  [{smi}]")
-        check(err <= TOL, f"{name} {label}: rel err {err:.3e} > {TOL}")
+        check(err <= tol, f"{name} {label}: rel err {err:.3e} > {tol}")
         return dict(max_abs_err=float((out - ref).abs().max()), rel_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
@@ -302,6 +326,79 @@ def main() -> int:
                 record["select"] = dict(max_abs_err=err, rel_err=0.0, ms=ms, plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
+    # the GSC kernel against its twin: U utterances of 8 ch x 1000 frames x
+    # 129 bins, each with the DS weights and blocking matrix of its own source
+    N8, T_g = 8, 1000
+    POS8 = np.asarray(ArrayGeometry.circular(N8, 0.10).positions)
+    gsc_args = dict(mu=0.05, eps=1e-6, cap=10.0)
+
+    def gsc_case(U, seed):
+        r = np.random.default_rng(seed)
+        X = torch.view_as_complex(torch.as_tensor(
+            r.standard_normal((U, N8, T_g, K, 2)).astype(np.float32), device=dev))
+        srcs = r.uniform(-2.0, 2.0, (U, 3)) + np.array([0.0, 2.5, 0.0])
+        taus = np.stack([design.steering_delays(POS8, p_, 343.0, SR) / SR for p_ in srcs])
+        v = bf.steering_vectors(torch.as_tensor(taus.astype(np.float32), device=dev), cfg.M, SR)
+        return X.contiguous(), bf.ds_weights(v).contiguous(), bf.blocking_matrix(v).contiguous()
+
+    for U in (1, 8):
+        X, wq, Bm = gsc_case(U, 100 + U)
+        kern = lambda: cgsc.gsc_nlms(X, wq, Bm, **gsc_args)          # noqa: E731
+        plain = lambda: cgsc.gsc_nlms_plain(X, wq, Bm, **gsc_args)   # noqa: E731
+        (Y, wa), (Y_p, wa_p) = kern(), plain()
+        half = T_g // 2
+        Y1, wa1 = cgsc.gsc_nlms(X[:, :, :half].contiguous(), wq, Bm, **gsc_args)
+        Y2, wa2 = cgsc.gsc_nlms(X[:, :, half:].contiguous(), wq, Bm, **gsc_args, wa0=wa1)
+        torch.cuda.synchronize()
+        err_y, err_wa = rel_err(Y, Y_p), rel_err(wa, wa_p)
+        scale = Y_p.abs().max()
+        at = {t: float((Y[:, t - 1] - Y_p[:, t - 1]).abs().max() / scale) for t in (40, 500, 1000)}
+        err_halves = max(rel_err(torch.cat([Y1, Y2], dim=1), Y), rel_err(wa2, wa))
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        # X read once, wq and B read, Y and wa written; per step and bin
+        # 8 N^2 + 28 (N - 1) + 4 operations (yc, z, y, |z|^2, update, norm, cap)
+        b_ms, b_by = bound(8 * U * K * (N8 * T_g + N8 + N8 * (N8 - 1) + T_g + N8 - 1),
+                           U * K * T_g * (8 * N8 * N8 + 28 * (N8 - 1) + 4))
+        print(f"gsc U={U} N={N8} T={T_g} K={K}: rel err Y {err_y:.2e} wa {err_wa:.2e} (bound "
+              f"{TOL_ADAPTIVE:.0e}); Y error at frames 40 / 500 / 1000 "
+              + " / ".join(f"{e:.2e}" for e in at.values())
+              + f"; two halves through wa0 vs one pass {err_halves:.2e}; kernel {ms:.4f} ms "
+              f"({ms / T_g * 1e3:.3f} us per frame step)  plain {plain_ms:.4f} ms  library n/a  "
+              f"bound {b_ms:.4f} ms ({b_by})  [{smi}]")
+        check(err_y <= TOL_ADAPTIVE and err_wa <= TOL_ADAPTIVE,
+              f"gsc U={U}: kernel differs from its twin (Y {err_y:.3e}, wa {err_wa:.3e})")
+        check(err_halves <= 1e-5, f"gsc U={U}: two halves threaded through wa0 differ from "
+                                  f"one pass by {err_halves:.3e}")
+        if U == 1:   # the config-3 path's shape
+            record["gsc"] = dict(max_abs_err=float((Y - Y_p).abs().max()), rel_err=err_y, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
+
+    # the steering kernel against its twin (the composed steering vectors,
+    # DS weights and apply): static delays and a moving source's trajectory
+    for C in (8, 16):
+        POSc = np.asarray(ArrayGeometry.circular(C, 0.10).positions)
+        r = np.random.default_rng(200 + C)
+        Xs = torch.view_as_complex(torch.as_tensor(
+            r.standard_normal((C, T_g, K, 2)).astype(np.float32), device=dev)).contiguous()
+        for traj in (False, True):
+            path = ([np.array([0.5 + 1e-3 * t, 1.5, 0.3]) for t in range(T_g)] if traj
+                    else [np.array([0.5, 1.5, 0.3])])
+            taus = np.stack([design.steering_delays(POSc, p_, 343.0, SR) / SR for p_ in path])
+            taus = torch.as_tensor(taus.astype(np.float32), device=dev)
+            taus = taus if traj else taus[0].contiguous()
+            label = f"{C} ch x {T_g} frames, {'per-frame' if traj else 'static'} delays"
+            # X and the delays read, Y written; per (n, t, k) a phase product,
+            # a sine and a cosine and a complex multiply-add (8 operations)
+            res = compare("steering", label,
+                          lambda: csteer.ds_beamform(Xs, taus, cfg.M, SR),
+                          lambda: csteer.ds_beamform_plain(Xs, taus, cfg.M, SR),
+                          8 * C * T_g * K + 4 * taus.numel() + 8 * T_g * K,
+                          11 * C * T_g * K, tol=TOL_ADAPTIVE)
+            if C == 8 and traj:   # the config-3 path's shape
+                record["steering"] = res
+
     # ---- 3. the main path, counted -----------------------------------------
     pipe = DsrPipeline(fb=cfg, geometry=ArrayGeometry.circular(8, 0.10),
                        beamformer=BeamformerConfig(kind="mvdr"))
@@ -313,7 +410,7 @@ def main() -> int:
     fwd, (x_entry,) = entry()
     torch.cuda.synchronize()
 
-    counters = (cfb, csel)
+    counters = (cfb, csel, cgsc, csteer)
     counts = {name: 0 for mod in counters for name in mod.launches}
 
     def counted(path, fn, expect):
@@ -417,7 +514,185 @@ def main() -> int:
           f"{4.0 / (proc_ms / 1e3):.1f} audio-s/s [{smi}]; stages (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
 
-    # ---- 5. the decode ------------------------------------------------------
+    # ---- 5. config 3: the tracked adaptive front end -------------------------
+    # An 8 s recording of an 8-mic 0.10 m circular array: a seeded white
+    # source at SRC3 in free field (fractional delays as an rfft phase
+    # shift) and independent sensor noise at 20 dB SNR on each mic.
+    SRC3 = np.array([0.6, 1.5, 0.3])                 # tests/test_tracked_gsc_wer.py's
+    PRIOR3 = SRC3 + np.array([0.5, -0.4, 0.2])       # the tracker starts here
+    BL, HOP = 8000, 4000                             # 0.5 s GCC blocks at 50 % overlap
+    S3 = int(8 * SR)
+    rs3 = np.random.default_rng(3)
+    taus_true = design.steering_delays(POS8, SRC3, 343.0, SR) / SR
+    nfft3 = 1 << int(np.ceil(np.log2(S3 + SR * np.abs(taus_true).max() + 1)))
+    f3 = np.fft.rfftfreq(nfft3, 1.0 / SR)
+    x3 = np.fft.irfft(np.fft.rfft(rs3.standard_normal(S3), nfft3)[None]
+                      * np.exp(-2j * np.pi * f3[None] * taus_true[:, None]), nfft3)[:, :S3]
+    x3 += rs3.standard_normal(x3.shape) * np.sqrt(np.mean(x3 ** 2, axis=1, keepdims=True) / 100)
+    x3 = x3.astype(np.float32)
+    pairs3 = [(i, j) for i in range(N8) for j in range(i + 1, N8)]
+    nb3 = (S3 - BL) // HOP + 1
+
+    def tdoas3(x):
+        """GCC-PHAT TDOAs (blocks, 28 pairs) of x (N, S), seconds."""
+        return torch.stack([tde.gcc_phat_pairs(x[:, b * HOP:b * HOP + BL], pairs3, SR,
+                                               max_tau=0.21 / 343.0, interp=16)
+                            for b in range(nb3)])
+
+    def track3(td):
+        """The IEKF from the displaced prior: 40 epochs over the per-pair
+        medians, then the blocks in order → positions (40 + blocks, 3)."""
+        dev_ = td.device
+        PI, PJ = (torch.tensor([p_[k] for p_ in pairs3], device=dev_) for k in (0, 1))
+        seq = torch.cat([torch.quantile(td, 0.5, dim=0).expand(40, -1), td])
+        return trk.track(seq, torch.as_tensor(PRIOR3.astype(np.float32), device=dev_),
+                         0.09 * torch.eye(3, device=dev_),
+                         torch.as_tensor(POS8.astype(np.float32), device=dev_), PI, PJ,
+                         q=1e-6, r=1e-8)
+
+    def config3(x, stage_s=None):
+        """One config-3 request: (N, S) → TDOAs, track, delays, both
+        beamformers' subbands and waveforms, GSC features.  With a dict
+        `stage_s`, the host-clock seconds of its three stages (the card
+        synchronised after each) are added to it."""
+        marks = [time.perf_counter()]
+
+        def mark():
+            if stage_s is not None:
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+        td = tdoas3(x)
+        mark()
+        est = track3(td)
+        mark()
+        POS = torch.as_tensor(POS8.astype(np.float32), device=x.device)
+        A = fb.analysis(x, cfg)
+        taus = trk.steering_delays_from_position(est[39], POS)
+        block = np.clip((np.arange(A.shape[1]) * cfg.D - BL // 2) // HOP, 0, nb3 - 1)
+        taus_t = torch.stack([trk.steering_delays_from_position(p_, POS)
+                              for p_ in est[-nb3:]])[torch.as_tensor(block, device=x.device)]
+        out = dict(td=td, est=est, A=A, taus=taus, taus_t=taus_t,
+                   **beamform3(A, taus, taus_t.contiguous(), x.shape[-1]))
+        mark()
+        if stage_s is not None:
+            for name, a, b in zip(("TDOAs", "tracker", "analysis, GSC, DS, synthesis, MFCC"),
+                                  marks, marks[1:]):
+                stage_s[name] = stage_s.get(name, 0.0) + (b - a)
+        return out
+
+    def beamform3(A, taus, taus_t, S):
+        """MVDR-quiescent GSC and tracked DS of A (N, T, K), synthesis, GSC features."""
+        v = bf.steering_vectors(taus, cfg.M, SR)
+        Gamma = bf.diffuse_coherence(POS8, cfg.M, SR, 343.0, A.device)
+        w = bf.mvdr_weights(v, Gamma, 1e-2)
+        Y_g, _ = bf.gsc_nlms(A, w, bf.blocking_matrix(v), 0.05, 1e-6, 10.0)
+        Y_d = bf.ds_beamform(A, taus_t, cfg.M, SR)
+        return dict(Y_g=Y_g, Y_d=Y_d, y_g=fb.synthesis(Y_g, cfg, S), y_d=fb.synthesis(Y_d, cfg, S),
+                    feats=ft.cmn(ft.mfcc_from_subbands(Y_g, cfg.M, SR)))
+
+    x3_t = torch.as_tensor(x3, device=dev)
+    out3 = counted("config 3 (TDOA -> IEKF -> tracked GSC + tracked DS -> synthesis -> MFCC)",
+                   lambda: config3(x3_t),
+                   {"analysis": 1, "synthesis": 2, "gsc": 1, "steering": 1})
+    steer_err = float(np.mean(np.abs(out3["taus"].cpu().numpy() - taus_true)))
+    traj_err = float(np.mean(np.abs(out3["taus_t"].cpu().numpy() - taus_true[None])))
+    pos_err = float(np.linalg.norm(out3["est"][39].cpu().numpy() - SRC3))
+    T3 = out3["A"].shape[1]
+    print(f"config 3: {nb3} blocks x 28 pair TDOAs, tracked position {pos_err:.3f} m from the "
+          f"source (prior 0.678 m off); mean steering error {steer_err * 1e6:.2f} us (gate < 30 "
+          f"us), along the per-block trajectory {traj_err * 1e6:.2f} us; {T3} frames")
+    check(steer_err < 30e-6, "config 3: the tracker's steering error")
+    check(all(bool(torch.isfinite(out3[k]).all()) for k in ("Y_g", "Y_d", "y_g", "y_d", "feats"))
+          and out3["y_g"].shape == (S3,) and out3["Y_d"].shape == (T3, K),
+          "config 3: finite outputs of the expected shapes")
+    ref3 = beamform3(fb.analysis(torch.as_tensor(x3), cfg), out3["taus"].cpu(),
+                     out3["taus_t"].cpu().contiguous(), S3)
+    errs3 = {k: rel_err(out3[k].cpu(), ref3[k]) for k in ("Y_g", "Y_d", "y_g", "y_d", "feats")}
+    print("config 3 card vs CPU plain path fed the same delays: "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs3.items()) + " (bound 1e-4)")
+    check(max(errs3.values()) <= 1e-4, "config 3: the card agrees with the CPU plain path")
+
+    def host_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    A3, td3 = out3["A"], out3["td"]
+    v3 = bf.steering_vectors(out3["taus"], cfg.M, SR)
+    w3 = bf.mvdr_weights(v3, bf.diffuse_coherence(POS8, cfg.M, SR, 343.0, dev), 1e-2)
+    B3 = bf.blocking_matrix(v3)
+    reps3, stage_s = 3, {}
+    req3_ms = host_ms(lambda: config3(x3_t, stage_s), reps=reps3)
+    stage_s = {k: v / (reps3 + 1) * 1e3 for k, v in stage_s.items()}   # warm-up call included
+    kern3 = {"GSC kernel": cuda_ms(lambda: bf.gsc_nlms(A3, w3, B3, 0.05, 1e-6, 10.0), iters=10),
+             "DS kernel": cuda_ms(lambda: bf.ds_beamform(A3, out3["taus_t"], cfg.M, SR), iters=10),
+             "tracker on the host CPU (same TDOAs)": host_ms(lambda: track3(td3.cpu()))}
+    print(f"config 3 request 8 ch x 8 s: {req3_ms:.1f} ms on the host clock = "
+          f"{8.0 / (req3_ms / 1e3):.1f} audio-s/s [{smi}]; its stages (host clock, ms): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stage_s.items())
+          + "; the kernels on the card's clock and the tracker on the host (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in kern3.items()))
+
+    # DsrPipeline(kind="gsc"): the Zelinski post-filter (process, and
+    # process_streaming over 0.5 s blocks, examples/streaming_beamformer.py's
+    # path) and WPE dereverberation, card against the CPU plain path
+    def gsc_pipe(device=None, **kw):
+        return DsrPipeline(fb=cfg, geometry=ArrayGeometry.circular(8, 0.10),
+                           beamformer=BeamformerConfig(kind="gsc"), device=device, **kw)
+
+    xg = requests[0]
+    Sg = xg.shape[-1]
+    pipe_z, cpu_z = gsc_pipe(postfilter="zelinski"), gsc_pipe("cpu", postfilter="zelinski")
+    y_z, f_z = counted("process gsc + zelinski", lambda: pipe_z.process(xg, SOURCE),
+                       {"analysis": 1, "synthesis": 1})
+    y_zc, f_zc = cpu_z.process(xg, SOURCE)
+    blocks = [xg[:, i:i + 8000] for i in range(0, Sg, 8000)]
+    ys_z = counted("process_streaming gsc + zelinski",
+                   lambda: torch.cat(list(pipe_z.process_streaming(blocks, SOURCE))),
+                   {"analysis": len(blocks) + 1, "synthesis": len(blocks) + 1})
+    ys_zc = torch.cat(list(cpu_z.process_streaming(blocks, SOURCE)))
+    pipe_w, cpu_w = gsc_pipe(dereverb=True), gsc_pipe("cpu", dereverb=True)
+    y_w, f_w = counted("process gsc + dereverb", lambda: pipe_w.process(xg, SOURCE),
+                       {"analysis": 1, "synthesis": 1})
+    # WPE's normal equations on these subbands have condition numbers ~1e9
+    # (white noise through the oversampled filterbank, and the pad frames),
+    # so float32 WPE scatters by O(1) on any two libraries (the CPU tests
+    # hold it to float64 and to the JAX package on well-conditioned data):
+    # the card's dereverbed subbands are checked finite, then fed to both
+    # the card's and the CPU's beamforming and synthesis; and WPE itself is
+    # compared on well-conditioned AR subbands (8 ch x 1000 frames x 129).
+    A_w = der.wpe(fb.analysis(torch.as_tensor(xg, device=dev), cfg))
+    y_wd = fb.synthesis(pipe_w.beamform_subbands(A_w, SOURCE)[0], cfg, Sg)
+    y_wc = fb.synthesis(cpu_w.beamform_subbands(A_w.cpu(), SOURCE)[0], cfg, Sg)
+    ra = np.random.default_rng(9)
+    Yar = ra.standard_normal((8, 1000, K)) + 1j * ra.standard_normal((8, 1000, K))
+    for t in range(3, 1000):
+        Yar[:, t] += 0.54 * Yar[:, t - 3]
+    Yar = torch.as_tensor(Yar.astype(np.complex64))
+    errs_p = {"process y": rel_err(y_z.cpu(), y_zc), "process feats": rel_err(f_z.cpu(), f_zc),
+              "process_streaming y": rel_err(ys_z.cpu(), ys_zc),
+              "dereverb: beamform + synthesis of the card's WPE output": rel_err(y_wd.cpu(), y_wc),
+              "WPE on AR subbands": rel_err(der.wpe(Yar.to(dev)).cpu(), der.wpe(Yar))}
+    print("DsrPipeline(kind='gsc') card vs CPU plain path: "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs_p.items()) + " (bound 1e-4)")
+    check(bool(torch.isfinite(y_w).all() and torch.isfinite(f_w).all() and torch.isfinite(A_w).all()),
+          "dereverb: finite outputs")
+    check(torch.equal(y_w, y_wd), "dereverb: process is WPE, then beamform and synthesis")
+    check(max(errs_p.values()) <= 1e-4, "DsrPipeline(kind='gsc') agrees with the CPU plain path")
+    times_p = {"process gsc + zelinski": host_ms(lambda: pipe_z.process(xg, SOURCE)),
+               "process_streaming gsc + zelinski (8 blocks)": host_ms(
+                   lambda: list(pipe_z.process_streaming(blocks, SOURCE))),
+               "process gsc + dereverb": host_ms(lambda: pipe_w.process(xg, SOURCE))}
+    print(f"DsrPipeline(kind='gsc') 8 ch x 4 s on the host clock [{smi}]: "
+          + ", ".join(f"{k} {v:.1f} ms ({4.0 / (v / 1e3):.1f} audio-s/s)"
+                      for k, v in times_p.items()))
+
+    # ---- 6. the decode ------------------------------------------------------
     with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_graphs_") as cache_dir:
         os.environ["DSR_TPU_TORCH_CACHE"] = cache_dir   # a fresh build, not a cached graph
         try:
@@ -595,16 +870,39 @@ def main() -> int:
           f"score {score_s:.3f} vs offline {float(sc_off):.3f}")
     check(words_s == words_off and abs(score_s - float(sc_off)) < 0.1,
           "streamed words equal the offline decode")
+
+    # the streaming recogniser over a GSC pipeline: its weights adapt across
+    # chunks, so its frames are held to the CPU plain path's streamed frames
+    pipe_sg = DsrPipeline(fb=cfg, geometry=ArrayGeometry.circular(8, 0.10),
+                          beamformer=BeamformerConfig(kind="gsc"))
+    cpu_sg = DsrPipeline(fb=cfg, geometry=ArrayGeometry.circular(8, 0.10),
+                         beamformer=BeamformerConfig(kind="gsc"), device="cpu")
+    frames_g = torch.cat(list(pipe_sg.process_streaming_subbands(chunks, SOURCE)))
+    frames_c = torch.cat(list(cpu_sg.process_streaming_subbands(chunks, SOURCE)))
+    e_frames = rel_err(frames_g.cpu(), frames_c)
+    rec_g = StreamingRecognizer(pipe_sg, lambda f: gmm.loglik(am_s, f), tg300, SOURCE,
+                                cep_mean=cep_mean)
+    words_g, score_g = counted("streaming over GSC", lambda: rec_g.run(chunks),
+                               {"analysis": len(chunks), "select": frames_g.shape[0]})
+    print(f"streaming recogniser over GSC ({len(chunks)} chunks, {frames_g.shape[0]} frames): "
+          f"subband frames card vs CPU plain path rel err {e_frames:.2e} (bound 1e-4); "
+          f"{len(words_g)} words, score {score_g:.3f}")
+    check(e_frames <= 1e-4, "GSC streamed frames: the card agrees with the CPU plain path")
+    check(len(words_g) > 0 and math.isfinite(score_g), "the GSC streaming recogniser gives words")
     print(f"main path launches, all paths: {counts}")
 
     kernels = []
     replaces = {"analysis": "dsr_tpu/ops/pallas/filterbank.py:188",
                 "analysis_beamform": "dsr_tpu/ops/pallas/filterbank.py:338",
                 "synthesis": "dsr_tpu/ops/pallas/filterbank.py:710",
-                "select": "dsr_tpu/ops/pallas/select.py:221"}
-    for name in ("analysis", "analysis_beamform", "synthesis", "select"):
+                "select": "dsr_tpu/ops/pallas/select.py:221",
+                "gsc": "dsr_tpu/ops/pallas/gsc.py:27",
+                "steering": "dsr_tpu/ops/pallas/steering.py:34"}
+    sources = {"analysis": "filterbank.cu", "analysis_beamform": "filterbank.cu",
+               "synthesis": "filterbank.cu", "select": "select.cu", "gsc": "gsc.cu",
+               "steering": "steering.cu"}
+    for name, source in sources.items():
         r = record[name]
-        source = "select.cu" if name == "select" else "filterbank.cu"
         kernels.append({"name": name, "route": "cuda",
                         "source": f"dsr_tpu_torch/ops/cuda/csrc/{source}",
                         "replaces": replaces[name], "launches": counts[name],

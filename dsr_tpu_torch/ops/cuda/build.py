@@ -30,6 +30,8 @@ GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 SOURCES = {
     "filterbank": (PACKAGE / "ops" / "cuda" / "csrc" / "filterbank.cu", "nvcc"),
     "select": (PACKAGE / "ops" / "cuda" / "csrc" / "select.cu", "nvcc"),
+    "gsc": (PACKAGE / "ops" / "cuda" / "csrc" / "gsc.cu", "nvcc"),
+    "steering": (PACKAGE / "ops" / "cuda" / "csrc" / "steering.cu", "nvcc"),
     "wfst": (PACKAGE / "asr" / "fsm" / "csrc" / "wfst.cpp", "g++"),
 }
 

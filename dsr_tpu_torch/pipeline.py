@@ -1,9 +1,10 @@
 """Compose-stages public API of the PyTorch front end.
 
-Counterpart of `dsr_tpu.pipeline.DsrPipeline` for the fixed beamformers:
-multichannel waveform → subband analysis → DS or superdirective MVDR
-beamform → synthesis, plus subband MFCC (+ CMN).  It runs on the card
-unless `device` names another (`device="cpu"` runs the plain path).
+Counterpart of `dsr_tpu.pipeline.DsrPipeline`: multichannel waveform →
+subband analysis (→ WPE dereverberation) → DS, superdirective MVDR or GSC
+(block-NLMS) beamform (→ Zelinski or McCowan post-filter) → synthesis,
+plus subband MFCC (+ CMN).  It runs on the card unless `device` names
+another (`device="cpu"` runs the plain path).
 
     pipe = DsrPipeline(fb=FilterbankConfig(M=256, m=4, r=2),
                        geometry=ArrayGeometry.circular(8, 0.10),
@@ -12,11 +13,11 @@ unless `device` names another (`device="cpu"` runs the plain path).
 
 Streaming: `process_streaming` (enhanced waveform chunks),
 `process_streaming_subbands` (mature beamformed subband frames, equal to
-offline `process`'s) and `StreamingRecognizer` (audio chunks in, words
-out through the top-K decoder's chunked decode).
-
-Not ported yet (ROADMAP): the GSC beamformer, the post-filters and WPE
-dereverberation.
+offline `process`'s for the fixed beamformers) and `StreamingRecognizer`
+(audio chunks in, words out through the top-K decoder's chunked decode).
+The GSC's active weights are carried from chunk to chunk; the frames
+re-analysed over each chunk's overlap re-adapt, so a streamed GSC output
+follows the JAX package's streamed output, not the offline one.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ import torch
 from dsr_tpu_torch.asr.decoder import topk_decoder as tk
 from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig, FrontendConfig
 from dsr_tpu_torch.ops import beamforming as bf
+from dsr_tpu_torch.ops import dereverb as der
 from dsr_tpu_torch.ops import features as ft
 from dsr_tpu_torch.ops import filterbank as fb
+from dsr_tpu_torch.ops import postfilter as pf
 from dsr_tpu_torch.utils import design
 from dsr_tpu_torch.utils.device import resolve
 
@@ -41,33 +44,27 @@ class DsrPipeline:
     geometry: ArrayGeometry = field(default_factory=lambda: ArrayGeometry.linear(8, 0.04))
     beamformer: BeamformerConfig = field(default_factory=BeamformerConfig)
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
-    postfilter: str | None = None
+    postfilter: str | None = None   # None | 'zelinski' | 'mccowan'
     dereverb: bool = False
     device: str | torch.device | None = None
-    # Γl⁻¹ of the MVDR beamformer: geometry only, so computed once here
-    # (as bench.py hoists it); each request then costs a batched matvec.
+    # The diffuse coherence Γ (McCowan) and Γl⁻¹ (MVDR) depend on the
+    # geometry only, so they are computed once here (as bench.py hoists
+    # Γl⁻¹); each request then costs a batched matvec.
+    _gamma: torch.Tensor | None = field(default=None, init=False, repr=False)
     _gamma_inv: torch.Tensor | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        if self.beamformer.kind == "gsc":
-            raise NotImplementedError(
-                "kind='gsc' is not ported yet: it comes with the GSC kernel "
-                "(ROADMAP, Queue 2: ops/pallas/gsc.py _gsc_kernel)")
-        if self.beamformer.kind not in ("ds", "mvdr"):
+        if self.beamformer.kind not in ("ds", "mvdr", "gsc"):
             raise ValueError(f"unknown beamformer kind {self.beamformer.kind!r}")
-        if self.postfilter is not None:
-            raise NotImplementedError(
-                f"postfilter={self.postfilter!r} is not ported yet "
-                "(ROADMAP, Queue 1: the rest of ops/, postfilter)")
-        if self.dereverb:
-            raise NotImplementedError(
-                "dereverb=True is not ported yet (ROADMAP, Queue 1: the rest of ops/, dereverb)")
+        if self.postfilter not in (None, "zelinski", "mccowan"):
+            raise ValueError(f"unknown postfilter {self.postfilter!r}")
         self.device = resolve(self.device)
+        if self.beamformer.kind == "mvdr" or self.postfilter == "mccowan":
+            self._gamma = bf.diffuse_coherence(np.asarray(self.geometry.positions), self.fb.M,
+                                               float(self.frontend.sample_rate),
+                                               self.geometry.sound_speed, self.device)
         if self.beamformer.kind == "mvdr":
-            Gamma = bf.diffuse_coherence(np.asarray(self.geometry.positions), self.fb.M,
-                                         float(self.frontend.sample_rate),
-                                         self.geometry.sound_speed, self.device)
-            self._gamma_inv = bf.mvdr_precompute(Gamma, self.beamformer.diagonal_loading)
+            self._gamma_inv = bf.mvdr_precompute(self._gamma, self.beamformer.diagonal_loading)
 
     def steering_delays(self, source_pos: np.ndarray) -> np.ndarray:
         POS = np.asarray(self.geometry.positions)
@@ -77,24 +74,43 @@ class DsrPipeline:
             / self.frontend.sample_rate
         ).astype(np.float32)
 
-    def weights(self, source_pos: np.ndarray) -> torch.Tensor:
-        """Fixed beamformer weights (K, N) complex64 for a source position."""
-        sr = float(self.frontend.sample_rate)
+    def _steering(self, source_pos: np.ndarray) -> torch.Tensor:
+        """Steering vectors (K, N) complex64 towards a source position."""
         taus = torch.as_tensor(self.steering_delays(source_pos), device=self.device)
-        v = bf.steering_vectors(taus, self.fb.M, sr)
-        if self.beamformer.kind == "ds":
-            return bf.ds_weights(v)
-        return bf.mvdr_weights_from_inv(v, self._gamma_inv)
+        return bf.steering_vectors(taus, self.fb.M, float(self.frontend.sample_rate))
 
-    def beamform_subbands(self, A: torch.Tensor, source_pos: np.ndarray):
-        """A: (N, T, K) analysis output → (Y (T, K), None); the second item
-        stands for the adaptive beamformers' state, which DS and MVDR lack."""
-        return bf.apply_weights(A, self.weights(source_pos)), None
+    def weights(self, source_pos: np.ndarray) -> torch.Tensor:
+        """Fixed beamformer weights (K, N) complex64 for a source position:
+        DS, MVDR, or the GSC's quiescent (DS) weights."""
+        v = self._steering(source_pos)
+        if self.beamformer.kind == "mvdr":
+            return bf.mvdr_weights_from_inv(v, self._gamma_inv)
+        return bf.ds_weights(v)
+
+    def beamform_subbands(self, A: torch.Tensor, source_pos: np.ndarray,
+                          gsc_state: torch.Tensor | None = None):
+        """A: (N, T, K) analysis output → (Y (T, K), new GSC state (K, N-1),
+        or None for DS and MVDR)."""
+        state = None
+        if self.beamformer.kind == "gsc":
+            v = self._steering(source_pos)
+            c = self.beamformer
+            Y, state = bf.gsc_nlms_block(A, bf.ds_weights(v), bf.blocking_matrix(v), mu=c.mu,
+                                         eps=c.eps, wa_norm_cap=c.wa_norm_cap, wa0=gsc_state)
+        else:
+            Y = bf.apply_weights(A, self.weights(source_pos))
+        if self.postfilter == "zelinski":
+            Y = pf.apply_postfilter(Y, pf.zelinski_weights(A))
+        elif self.postfilter == "mccowan":
+            Y = pf.apply_postfilter(Y, pf.mccowan_weights(A, self._gamma))
+        return Y, state
 
     def process(self, x_multi, source_pos: np.ndarray):
         """(N, S) waveforms → (enhanced waveform (S,), features (T', D))."""
         x = torch.as_tensor(x_multi, dtype=torch.float32, device=self.device)
         A = fb.analysis(x, self.fb)
+        if self.dereverb:
+            A = der.wpe(A)
         Y, _ = self.beamform_subbands(A, source_pos)
         y = fb.synthesis(Y, self.fb, x.shape[-1])
         feats = ft.mfcc_from_subbands(
@@ -107,9 +123,9 @@ class DsrPipeline:
             feats = ft.cmn(feats)
         return y, feats
 
-    def _subbands(self, buf: np.ndarray, source_pos: np.ndarray) -> torch.Tensor:
+    def _subbands(self, buf: np.ndarray, source_pos: np.ndarray, gsc_state):
         A = fb.analysis(torch.as_tensor(buf, device=self.device), self.fb)
-        return self.beamform_subbands(A, source_pos)[0]
+        return self.beamform_subbands(A, source_pos, gsc_state)
 
     def process_streaming(self, chunks, source_pos: np.ndarray):
         """Iterate (N, block) chunks → yields enhanced (block,) chunks.
@@ -117,7 +133,9 @@ class DsrPipeline:
         Chunked streaming: each chunk is analysed with L samples of carried
         history so boundary-straddling frames are recomputed; for the fixed
         beamformers the concatenated output matches offline processing to
-        filterbank precision."""
+        filterbank precision; the GSC carries its active weights and
+        re-adapts over the re-processed overlap."""
+        gsc_state = None
         L = self.fb.L
         buf = None          # trailing input kept for context: last 2L samples
         emitted = 0         # samples emitted, in global coordinates
@@ -127,7 +145,8 @@ class DsrPipeline:
             buf = chunk if buf is None else np.concatenate([buf, chunk], axis=-1)
             consumed += chunk.shape[-1]
             buf_start = consumed - buf.shape[-1]
-            y = fb.synthesis(self._subbands(buf, source_pos), self.fb, buf.shape[-1])
+            Y, gsc_state = self._subbands(buf, source_pos, gsc_state)
+            y = fb.synthesis(Y, self.fb, buf.shape[-1])
             mature_end = consumed - L  # needs >= L future samples to be final
             if mature_end > emitted:
                 yield y[emitted - buf_start: mature_end - buf_start]
@@ -136,7 +155,8 @@ class DsrPipeline:
             buf = buf[..., -keep:]
         if buf is not None and consumed > emitted:  # flush the tail
             buf_start = consumed - buf.shape[-1]
-            y = fb.synthesis(self._subbands(buf, source_pos), self.fb, buf.shape[-1])
+            Y, gsc_state = self._subbands(buf, source_pos, gsc_state)
+            y = fb.synthesis(Y, self.fb, buf.shape[-1])
             yield y[emitted - buf_start:]
 
     def process_streaming_subbands(self, chunks, source_pos: np.ndarray):
@@ -147,8 +167,10 @@ class DsrPipeline:
         emitted once its window lies inside the consumed input.  The carried
         buffer keeps >= 2L samples trimmed to a D-aligned global offset, so
         re-analysed boundary frames see exactly the offline window (the
-        chunk-local zero pad only touches frames already emitted)."""
+        chunk-local zero pad only touches frames already emitted).  The GSC
+        carries its active weights and re-adapts over the overlap."""
         D, L = self.fb.D, self.fb.L
+        gsc_state = None
         buf = None
         consumed = 0
         emitted_f = 0           # global frames emitted
@@ -160,7 +182,7 @@ class DsrPipeline:
             buf = chunk if buf is None else np.concatenate([buf, chunk], axis=-1)
             consumed += chunk.shape[-1]
             buf_start = consumed - buf.shape[-1]
-            Y = self._subbands(buf, source_pos)
+            Y, gsc_state = self._subbands(buf, source_pos, gsc_state)
             if pending is None:
                 mf = buf_start // D + Y.shape[-2]  # flush: all local frames
             else:
@@ -178,8 +200,9 @@ class StreamingRecognizer:
     """Streaming recognition: multichannel audio chunks in, words out, equal
     to the whole-utterance decode.
 
-    The carried state is the front end's sample buffer and the decoder's
-    (states, scores) token carry; everything else is frame-local.  Token
+    The carried state is the front end's sample buffer, the GSC's active
+    weights (if any) and the decoder's (states, scores) token carry;
+    everything else is frame-local.  Token
     tables accumulate per chunk; `finish()` runs the utterance-final
     traceback.
 

@@ -13,6 +13,7 @@ import torch
 
 from dsr_tpu.config import ArrayGeometry as JGeometry
 from dsr_tpu.config import FilterbankConfig as JFilterbankConfig
+from dsr_tpu.ops import beamforming as jbf
 from dsr_tpu.ops import filterbank as jfb
 from dsr_tpu_torch.config import ArrayGeometry, FilterbankConfig
 from golden import room as groom
@@ -111,3 +112,74 @@ def logliks(rng, shape, rounded: bool):
 
 def words(olabels) -> list[int]:
     return [int(w) for w in np.asarray(olabels) if w]
+
+
+# ---------------------------------------------------------------- the GSC
+
+
+def gsc_case(seed=2, N=4, T=40, M=64):
+    """(X (N, T, K), wq (K, N), B (K, N, N-1)) complex64 for a linear 4 cm
+    array steered at a source 1 m in front of it: the inputs of
+    tests/test_pallas.py's GSC gate, made by the JAX package."""
+    POS = np.asarray(JGeometry.linear(N, 0.04).positions)
+    taus = (groom.steering_delays(POS, np.array([0.0, 1.0, 0.0]), 343.0, SR) / SR)
+    v = np.array(jbf.steering_vectors(taus.astype(np.float32), M, SR))
+    B = np.array(jbf.blocking_matrix(v))
+    X = subbands(np.random.default_rng(seed), N, T, M // 2 + 1)
+    return X, (v / N).astype(np.complex64), B
+
+
+def target_and_interferer(seed, N=4, T=120, M=64):
+    """(X, wq, B, v_s, v_i): a super-Gaussian target (Laplacian magnitudes)
+    from 2 m in front of a linear 4 cm array, a Gaussian interferer from the
+    side and -40 dB of sensor noise, as tests/test_beamforming.py builds
+    them; wq and B steer at the target."""
+    rng = np.random.default_rng(seed)
+    POS = np.asarray(JGeometry.linear(N, 0.04).positions)
+    K = M // 2 + 1
+    v_s, v_i = (np.array(jbf.steering_vectors(
+        (groom.steering_delays(POS, np.array(p), 343.0, SR) / SR).astype(np.float32), M, SR))
+        for p in ([0.0, 2.0, 0.0], [2.0, 1.0, 0.0]))
+    s = rng.laplace(size=(T, K)) * np.exp(2j * np.pi * rng.random((T, K)))
+    n = (rng.standard_normal((T, K)) + 1j * rng.standard_normal((T, K))) * 2.0
+    X = v_s.T[:, None, :] * s[None] + v_i.T[:, None, :] * n[None]
+    X = X + 0.01 * (rng.standard_normal(X.shape) + 1j * rng.standard_normal(X.shape))
+    B = np.array(jbf.blocking_matrix(v_s))
+    return X.astype(np.complex64), (v_s / N).astype(np.complex64), B, v_s, v_i
+
+
+def phone_system(source):
+    """A small phone-task HCLG and a seeded 2-component diagonal GMM, both
+    built by the JAX package, and a corpus utterance recorded by a 4-mic
+    linear 5 cm array from `source` (25 dB SNR), whole and cut into five
+    ragged chunks: (graph, params, xm (4, S), chunks)."""
+    import jax.numpy as jnp
+
+    from dsr_tpu.asr import phone_task
+    from dsr_tpu.asr.am import gmm as jgmm
+    from dsr_tpu.asr.fsm import hclg as jhclg
+    from dsr_tpu.asr.fsm import lm as jlm
+    from dsr_tpu.asr.fsm.packed import pack as jpack
+    from golden import corpus as gcorpus
+
+    task = phone_task.PhoneTask(gcorpus.VOCAB[:6], states_per_phone=2)
+    transcripts = [[w if w in task.vocab else task.vocab[0] for w in ws]
+                   for ws, _ in gcorpus.make_corpus(12, seed=0)]
+    G = jlm.arpa_to_fst(jlm.train_arpa_bigram(transcripts, task.vocab), task.words)
+    L, ndis = jhclg.build_lexicon_fst(task.lexicon, task.phones, task.words, sil_phone="sil")
+    P = len(task.phones) - 1
+    H = jhclg.build_hmm_fst(P, ndis, states_per_phone=task.spp)
+    graph = jpack(jhclg.compose_hclg(H, L, G, P, ndis))
+    rng = np.random.default_rng(3)
+    n_pdf = P * task.spp
+    params = jgmm.GmmParams(
+        jnp.asarray(rng.standard_normal((n_pdf, 2, 13)).astype(np.float32) * 3),
+        jnp.asarray((0.5 + rng.random((n_pdf, 2, 13))).astype(np.float32) * 5),
+        jnp.asarray(np.log(np.full((n_pdf, 2), 0.5, np.float32))))
+    geom = JGeometry.linear(4, 0.05)
+    _, x = gcorpus.make_corpus(1, min_words=2, max_words=3, seed=77)[0]
+    xm = groom.simulate(np.asarray(x, np.float32), np.asarray(geom.positions), source, SR,
+                        snr_db=25.0, rng=np.random.default_rng(7)).astype(np.float32)
+    cuts = [0, 1500, 5000, 5600, 12000, xm.shape[-1]]
+    chunks = [xm[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    return graph, params, xm, chunks

@@ -1,5 +1,6 @@
 """Port parity end to end: `dsr_tpu_torch.pipeline.DsrPipeline.process`
-against `dsr_tpu.pipeline`, and the options the port does not carry yet.
+against `dsr_tpu.pipeline` (DS and MVDR; the GSC in
+tests/test_torch_pipeline_gsc.py), and the options it refuses.
 
 Tolerances, relative to the largest magnitude of the reference: 1e-5 for
 the DS waveform (filterbank and beamform rounding only); 1e-4 for what the
@@ -46,10 +47,13 @@ def test_process_matches_jax(kind, geometry, wave_tol):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(beamformer=BeamformerConfig(kind="gsc")), "GSC kernel"),
-    (dict(postfilter="zelinski"), "postfilter"),
-    (dict(dereverb=True), "dereverb"),
+    (dict(beamformer=BeamformerConfig(kind="lcmv")), "unknown beamformer kind"),
+    (dict(postfilter="wiener"), "unknown postfilter"),
+    (dict(beamformer=BeamformerConfig(kind="gsc"), postfilter="lefkimmiatis"),
+     "unknown postfilter"),
 ])
 def test_unported_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """Options that neither package's pipeline carries are refused (the
+    GSC, the post-filters and WPE, once refused here, are ported)."""
+    with pytest.raises(ValueError, match=match):
         DsrPipeline(device="cpu", **kwargs)

@@ -20,13 +20,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import rel
-from dsr_tpu.asr import phone_task
+from _torch_parity import phone_system, rel
 from dsr_tpu.asr.am import gmm as jgmm
 from dsr_tpu.asr.decoder import topk_decoder as jtk
-from dsr_tpu.asr.fsm import hclg as jhclg
-from dsr_tpu.asr.fsm import lm as jlm
-from dsr_tpu.asr.fsm.packed import pack as jpack
 from dsr_tpu.config import ArrayGeometry as JGeometry
 from dsr_tpu.config import BeamformerConfig as JBeamformer
 from dsr_tpu.config import FilterbankConfig as JFilterbank
@@ -41,8 +37,6 @@ from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConf
 from dsr_tpu_torch.ops import features as ft
 from dsr_tpu_torch.ops import filterbank as fb
 from dsr_tpu_torch.pipeline import DsrPipeline, StreamingRecognizer
-from golden import corpus as gcorpus
-from golden import room as groom
 
 SR = 16000.0
 SOURCE = np.array([0.4, 1.2, 0.0])
@@ -50,27 +44,7 @@ SOURCE = np.array([0.4, 1.2, 0.0])
 
 @pytest.fixture(scope="module")
 def system():
-    task = phone_task.PhoneTask(gcorpus.VOCAB[:6], states_per_phone=2)
-    transcripts = [[w if w in task.vocab else task.vocab[0] for w in ws]
-                   for ws, _ in gcorpus.make_corpus(12, seed=0)]
-    G = jlm.arpa_to_fst(jlm.train_arpa_bigram(transcripts, task.vocab), task.words)
-    L, ndis = jhclg.build_lexicon_fst(task.lexicon, task.phones, task.words, sil_phone="sil")
-    P = len(task.phones) - 1
-    H = jhclg.build_hmm_fst(P, ndis, states_per_phone=task.spp)
-    graph = jpack(jhclg.compose_hclg(H, L, G, P, ndis))
-    rng = np.random.default_rng(3)
-    n_pdf = P * task.spp
-    params = jgmm.GmmParams(
-        jnp.asarray(rng.standard_normal((n_pdf, 2, 13)).astype(np.float32) * 3),
-        jnp.asarray((0.5 + rng.random((n_pdf, 2, 13))).astype(np.float32) * 5),
-        jnp.asarray(np.log(np.full((n_pdf, 2), 0.5, np.float32))))
-    geom = JGeometry.linear(4, 0.05)
-    _, x = gcorpus.make_corpus(1, min_words=2, max_words=3, seed=77)[0]
-    xm = groom.simulate(np.asarray(x, np.float32), np.asarray(geom.positions), SOURCE, SR,
-                        snr_db=25.0, rng=np.random.default_rng(7)).astype(np.float32)
-    cuts = [0, 1500, 5000, 5600, 12000, xm.shape[-1]]
-    chunks = [xm[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
-    return graph, params, xm, chunks
+    return phone_system(SOURCE)
 
 
 def _pipe(kind, device="cpu"):
