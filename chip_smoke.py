@@ -11,9 +11,14 @@ Phases, each of which fails the run loudly:
      main path's shapes and at a D = 256 config, with the time of each;
      the select kernel at the decoders' four pool shapes, bitwise; the GSC
      kernel at 1 and 8 utterances of 8 ch x 1000 frames (error at frames
-     40 / 500 / 1000, two chunks threaded through wa0 == one pass); the
-     steering kernel at 8 and 16 ch x 1000 frames, static and per-frame
-     delays;
+     40 / 500 / 1000, two chunks threaded through wa0 == one pass) and at
+     2, 16 and 64 channels; the steering kernel at 8 and 16 ch x 1000
+     frames, static and per-frame delays; the banded Viterbi kernel at the
+     force-align shape and a batch, bitwise; the shapes that raised before:
+     the select kernel at 269,312 candidates with kcap 1024 (bitwise) and
+     the filterbank kernels at four configs above the shared-memory opt-in;
+     and, untimed, each kernel's variants for inputs beyond those (delta,
+     B, the select sort or the DFT tables in device memory or in slabs);
   3. the front end's main path: `DsrPipeline.process` (MVDR) on 4 requests
      of 8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
      beamform (fused analysis+beamform -> synthesis) at 64 ch x 8 s; the
@@ -39,7 +44,15 @@ Phases, each of which fails the run loudly:
      the V = 300 graph for both decoders; the streaming recogniser
      (front end + chunked decode) against the offline decode; and the
      streaming recogniser over a GSC pipeline, its subband frames against
-     the CPU plain path's.
+     the CPU plain path's;
+  7. BASELINE config 1 on a synthetic corpus made here from a seed: MFCC +
+     CMN, ML training of whole-word GMM-HMMs on the card, forced alignment
+     of every training utterance through the banded Viterbi kernel (card
+     against the CPU's dense alignment, ties counted), the clean word-loop
+     decode (WER <= 0.05), the 8-ch delay-and-sum path (analysis -> DS ->
+     synthesis -> MFCC -> decode, WER <= 0.15, its utterances aligned
+     through the kernel), and the phone task's bigram HCLG decode; trained
+     means and decoded words against the CPU plain path.
 The last two lines are the kernels' JSON record and the verdict
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -117,8 +130,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from dsr_tpu_torch.asr import lvcsr
+    from dsr_tpu_torch.asr import lvcsr, phone_task, smallvocab
+    from dsr_tpu_torch.asr import path as apath
     from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.decoder import wfst_decoder as wd
+    from dsr_tpu_torch.asr.fsm import hclg, lm
+    from dsr_tpu_torch.asr.fsm.packed import pack
+    from dsr_tpu_torch.asr.train import trainer
     from dsr_tpu_torch.asr.decoder import split_decoder as sd
     from dsr_tpu_torch.asr.decoder import topk_decoder as tk
     from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
@@ -134,8 +152,10 @@ def main() -> int:
     from dsr_tpu_torch.ops.cuda import gsc as cgsc
     from dsr_tpu_torch.ops.cuda import select as csel
     from dsr_tpu_torch.ops.cuda import steering as csteer
+    from dsr_tpu_torch.ops.cuda import viterbi as cvit
     from dsr_tpu_torch.pipeline import DsrPipeline, StreamingRecognizer
-    from dsr_tpu_torch.utils import design
+    from dsr_tpu_torch.utils import corpus, design
+    from dsr_tpu_torch.utils.metrics import WerScorer
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -280,6 +300,30 @@ def main() -> int:
               + " / ".join(f"{e:.2e}" for e in errs))
         check(max(errs) <= TOL, f"kernels at M={c.M} m={c.m} r={c.r}")
 
+    # configs whose blocks exceeded the card's shared-memory opt-in before
+    # the analysis took its DFT in slabs of pairs and the synthesis its IDFT
+    # in slabs of bins; random prototypes as tests/_torch_parity.py's
+    # filterbank_case makes them; 4 ch x 1 s, each kernel timed
+    for M, m, r in ((512, 4, 4), (1024, 4, 2), (768, 4, 1), (768, 4, 2)):
+        c = FilterbankConfig(M=M, m=m, r=r)
+        h, g = (torch.as_tensor(rng.standard_normal(c.L).astype(np.float32) / 16, device=dev)
+                for _ in range(2))
+        xs = signal(4, 1.0)
+        C, S = xs.shape
+        T = fb.num_frames(S, c)
+        Kc = c.num_bins
+        label = f"4 ch x 1 s M={M} m={m} r={r}"
+        print(f"M={M} m={m} r={r} block layouts: {cfb.layouts(M, m, r)}")
+        analysis_case(c, xs, h, label, False)
+        ws = torch.view_as_complex(torch.as_tensor(
+            rng.standard_normal((Kc, C, 2)).astype(np.float32), device=dev)).contiguous()
+        compare("analysis_beamform", label,
+                lambda: cfb.analysis_beamform(xs, h, ws, M, m, r, T),
+                lambda: cfb.analysis_beamform_plain(xs, h, ws, M, r, T),
+                4 * (C * S + c.L) + 8 * Kc * C + 8 * T * Kc,
+                C * T * (2 * c.L + rfft_flops(M) + 8 * Kc))
+        synthesis_case(c, cfb.analysis_plain(xs, h, M, r, T), g, S, label, False)
+
     # the select kernel at the decoders' pool shapes (U = 8), bitwise
     def select_case(N, kcap, beam, seed):
         """Candidates as the decoders make them: many duplicate destinations
@@ -300,7 +344,8 @@ def main() -> int:
     for N, kcap, label in ((2304, 256, "split monophone (256+896)x2"),
                            (4608, 512, "split triphone (512+640)x4"),
                            (12032, 256, "dense monophone 256x47"),
-                           (134656, 512, "dense triphone 512x263, two launches")):
+                           (134656, 512, "dense triphone 512x263, two launches"),
+                           (269312, 1024, "dense triphone 1024x263, three launches")):
         for beam in (40.0, 1e9):
             args = select_case(N, kcap, beam, N + int(beam))
             out = csel.recombine_topk(*args, kcap)
@@ -332,17 +377,25 @@ def main() -> int:
     POS8 = np.asarray(ArrayGeometry.circular(N8, 0.10).positions)
     gsc_args = dict(mu=0.05, eps=1e-6, cap=10.0)
 
-    def gsc_case(U, seed):
+    def gsc_case(U, seed, POS):
+        N = len(POS)
         r = np.random.default_rng(seed)
         X = torch.view_as_complex(torch.as_tensor(
-            r.standard_normal((U, N8, T_g, K, 2)).astype(np.float32), device=dev))
+            r.standard_normal((U, N, T_g, K, 2)).astype(np.float32), device=dev))
         srcs = r.uniform(-2.0, 2.0, (U, 3)) + np.array([0.0, 2.5, 0.0])
-        taus = np.stack([design.steering_delays(POS8, p_, 343.0, SR) / SR for p_ in srcs])
+        taus = np.stack([design.steering_delays(POS, p_, 343.0, SR) / SR for p_ in srcs])
         v = bf.steering_vectors(torch.as_tensor(taus.astype(np.float32), device=dev), cfg.M, SR)
         return X.contiguous(), bf.ds_weights(v).contiguous(), bf.blocking_matrix(v).contiguous()
 
-    for U in (1, 8):
-        X, wq, Bm = gsc_case(U, 100 + U)
+    # U = 1 and 8 at 8 ch (the config-3 path and the JAX package's GSC
+    # measurement); 2 and 16 ch; config 2's 64-ch circular 0.20 m array
+    # (the one-warp-per-bin variant for more than 16 channels)
+    for U, POS in ((1, POS8), (8, POS8),
+                   (1, np.asarray(ArrayGeometry.circular(2, 0.10).positions)),
+                   (1, np.asarray(ArrayGeometry.circular(16, 0.10).positions)),
+                   (1, np.asarray(ArrayGeometry.circular(64, 0.20).positions))):
+        Ng = len(POS)
+        X, wq, Bm = gsc_case(U, 100 + U if Ng == 8 else 200 + Ng, POS)
         kern = lambda: cgsc.gsc_nlms(X, wq, Bm, **gsc_args)          # noqa: E731
         plain = lambda: cgsc.gsc_nlms_plain(X, wq, Bm, **gsc_args)   # noqa: E731
         (Y, wa), (Y_p, wa_p) = kern(), plain()
@@ -358,9 +411,9 @@ def main() -> int:
         plain_ms = cuda_ms(plain, iters=2, warmup=1)
         # X read once, wq and B read, Y and wa written; per step and bin
         # 8 N^2 + 28 (N - 1) + 4 operations (yc, z, y, |z|^2, update, norm, cap)
-        b_ms, b_by = bound(8 * U * K * (N8 * T_g + N8 + N8 * (N8 - 1) + T_g + N8 - 1),
-                           U * K * T_g * (8 * N8 * N8 + 28 * (N8 - 1) + 4))
-        print(f"gsc U={U} N={N8} T={T_g} K={K}: rel err Y {err_y:.2e} wa {err_wa:.2e} (bound "
+        b_ms, b_by = bound(8 * U * K * (Ng * T_g + Ng + Ng * (Ng - 1) + T_g + Ng - 1),
+                           U * K * T_g * (8 * Ng * Ng + 28 * (Ng - 1) + 4))
+        print(f"gsc U={U} N={Ng} T={T_g} K={K}: rel err Y {err_y:.2e} wa {err_wa:.2e} (bound "
               f"{TOL_ADAPTIVE:.0e}); Y error at frames 40 / 500 / 1000 "
               + " / ".join(f"{e:.2e}" for e in at.values())
               + f"; two halves through wa0 vs one pass {err_halves:.2e}; kernel {ms:.4f} ms "
@@ -370,7 +423,7 @@ def main() -> int:
               f"gsc U={U}: kernel differs from its twin (Y {err_y:.3e}, wa {err_wa:.3e})")
         check(err_halves <= 1e-5, f"gsc U={U}: two halves threaded through wa0 differ from "
                                   f"one pass by {err_halves:.3e}")
-        if U == 1:   # the config-3 path's shape
+        if U == 1 and Ng == 8:   # the config-3 path's shape
             record["gsc"] = dict(max_abs_err=float((Y - Y_p).abs().max()), rel_err=err_y, ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=None)
@@ -399,6 +452,95 @@ def main() -> int:
             if C == 8 and traj:   # the config-3 path's shape
                 record["steering"] = res
 
+    # the banded Viterbi kernel against its twin, bitwise (bp planes and the
+    # final delta): the force-align shape (one utterance of 186 frames over
+    # a 36-state chain, config 1's longest) and a batch of 8 x 1000 x 512
+    for U, T_v, S_v in ((1, 186, 36), (8, 1000, 512)):
+        r = np.random.default_rng(300 + S_v)
+        llv = torch.as_tensor((r.standard_normal((U, T_v, S_v)) * 3).astype(np.float32),
+                              device=dev)
+        wsv = torch.as_tensor(np.log(r.uniform(0.3, 0.9, S_v)).astype(np.float32), device=dev)
+        wav = torch.as_tensor(np.log(r.uniform(0.1, 0.7, S_v)).astype(np.float32), device=dev)
+        wav[0] = NEG
+        kern = lambda: cvit.banded_viterbi(llv, wsv, wav)          # noqa: E731
+        plain = lambda: cvit.banded_viterbi_plain(llv, wsv, wav)   # noqa: E731
+        (bp, dl), (bp_p, dl_p) = kern(), plain()
+        torch.cuda.synchronize()
+        same = torch.equal(bp, bp_p) and torch.equal(bits(dl), bits(dl_p))
+        ms = cuda_ms(kern)
+        plain_ms = cuda_ms(plain, iters=2, warmup=1)
+        # ll read and bp (uint8) written per frame and state; the weights read
+        # and delta written per state; 4 operations per frame and state
+        b_ms, b_by = bound(U * (T_v * S_v * (4 + 1) + 4 * S_v * 4), 4 * U * T_v * S_v)
+        chain_ms = T_v * 100 / 1.98e9 * 1e3
+        print(f"viterbi U={U} T={T_v} S={S_v}: bp planes and delta bitwise equal to the twin "
+              f"{same}; kernel {ms:.4f} ms ({ms / T_v * 1e3:.3f} us per frame)  plain "
+              f"{plain_ms:.4f} ms  library n/a  bound {b_ms:.5f} ms ({b_by}); dependent-chain "
+              f"floor estimated at {chain_ms:.4f} ms (~100 cycles per frame at 1,980 MHz, "
+              f"not measured)  [{smi}]")
+        check(same, f"viterbi U={U} T={T_v} S={S_v}: not bitwise equal to its twin")
+        if U == 1:   # the force-align path's shape
+            record["viterbi"] = dict(max_abs_err=float((dl - dl_p).abs().max()), rel_err=0.0,
+                                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                     library_ms=None)
+
+    # the kernels' variants for inputs beyond the main path's, against their
+    # twins (no timing): delta in device memory (S = 40,000) and the other
+    # register tilings of the Viterbi kernel; the GSC kernel with B read
+    # from device memory (200 channels); the select kernel's device-memory
+    # sort (kcap 9,000 > half a block) and two merge passes (kcap 64); the
+    # filterbank in three slabs (M = 2048), without a twiddle table (M =
+    # 32,768) and with 8 residues per synthesis block (r = 32)
+    for U, T_v, S_v in ((2, 50, 3000), (2, 40, 9000), (1, 20, 40000)):
+        r = np.random.default_rng(S_v)
+        llv = torch.as_tensor((r.standard_normal((U, T_v, S_v)) * 3).astype(np.float32),
+                              device=dev)
+        wsv, wav = (torch.as_tensor(np.log(r.uniform(lo, hi, S_v)).astype(np.float32), device=dev)
+                    for lo, hi in ((0.3, 0.9), (0.1, 0.7)))
+        wav[0] = NEG
+        (bp, dl), (bp_p, dl_p) = (f(llv, wsv, wav) for f in (cvit.banded_viterbi,
+                                                              cvit.banded_viterbi_plain))
+        check(torch.equal(bp, bp_p) and torch.equal(bits(dl), bits(dl_p)),
+              f"viterbi S={S_v}: not bitwise equal to its twin")
+    r = np.random.default_rng(7)
+    POS200 = np.asarray(ArrayGeometry.circular(200, 0.30).positions)
+    X = torch.view_as_complex(torch.as_tensor(
+        r.standard_normal((2, 200, 60, 5, 2)).astype(np.float32), device=dev)).contiguous()
+    v = bf.steering_vectors(torch.as_tensor(np.stack([
+        design.steering_delays(POS200, p_, 343.0, SR) / SR
+        for p_ in (np.array([0.5, 2.0, 0.0]), np.array([-1.0, 1.5, 0.3]))]).astype(np.float32),
+        device=dev), cfg.M, SR)[:, :5]
+    wq, Bm = bf.ds_weights(v).contiguous(), bf.blocking_matrix(v).contiguous()
+    (Y, wa), (Y_p, wa_p) = (f(X, wq, Bm, **gsc_args) for f in (cgsc.gsc_nlms, cgsc.gsc_nlms_plain))
+    err_g = max(rel_err(Y, Y_p), rel_err(wa, wa_p))
+    check(err_g <= TOL_ADAPTIVE, f"gsc N=200: rel err {err_g:.3e}")
+    for N, kcap in ((40000, 9000), (300000, 64)):
+        args = select_case(N, kcap, 40.0, N + kcap)
+        same = all(torch.equal(bits(o), bits(r_)) for o, r_ in zip(
+            csel.recombine_topk(*args, kcap), csel.recombine_topk_plain(*args, kcap)))
+        check(same, f"select N={N} kcap={kcap}: not bitwise equal to its twin")
+    errs_x = {}
+    for M, m, r_, C, secs in ((2048, 4, 2, 2, 1.0), (32768, 2, 2, 1, 8.0), (256, 4, 32, 2, 0.5)):
+        c = FilterbankConfig(M=M, m=m, r=r_)
+        h, g = (torch.as_tensor(rng.standard_normal(c.L).astype(np.float32) / 16, device=dev)
+                for _ in range(2))
+        xs = signal(C, secs)
+        T = fb.num_frames(xs.shape[-1], c)
+        ws = torch.view_as_complex(torch.as_tensor(
+            rng.standard_normal((c.num_bins, C, 2)).astype(np.float32), device=dev)).contiguous()
+        A = cfb.analysis_plain(xs, h, M, r_, T)
+        errs_x[f"M={M} m={m} r={r_}"] = max(
+            rel_err(cfb.analysis(xs, h, M, m, r_, T), A),
+            rel_err(cfb.analysis_beamform(xs, h, ws, M, m, r_, T),
+                    cfb.analysis_beamform_plain(xs, h, ws, M, r_, T)),
+            rel_err(cfb.synthesis(A, g, M, m, r_, c.L - c.D, xs.shape[-1]),
+                    cfb.synthesis_plain(A, g, M, r_, c.L - c.D, xs.shape[-1])))
+    print("kernel variants beyond the main path's shapes: viterbi S = 3,000 / 9,000 / 40,000 "
+          f"bitwise; gsc N = 200 rel err {err_g:.2e}; select N = 40,000 kcap 9,000 and N = "
+          "300,000 kcap 64 bitwise; filterbank " + ", ".join(
+              f"{k} {e:.2e}" for k, e in errs_x.items()) + f" (bound {TOL:.0e})")
+    check(max(errs_x.values()) <= TOL, "filterbank kernels beyond the main path's configs")
+
     # ---- 3. the main path, counted -----------------------------------------
     pipe = DsrPipeline(fb=cfg, geometry=ArrayGeometry.circular(8, 0.10),
                        beamformer=BeamformerConfig(kind="mvdr"))
@@ -410,7 +552,7 @@ def main() -> int:
     fwd, (x_entry,) = entry()
     torch.cuda.synchronize()
 
-    counters = (cfb, csel, cgsc, csteer)
+    counters = (cfb, csel, cgsc, csteer, cvit)
     counts = {name: 0 for mod in counters for name in mod.launches}
 
     def counted(path, fn, expect):
@@ -889,6 +1031,172 @@ def main() -> int:
           f"{len(words_g)} words, score {score_g:.3f}")
     check(e_frames <= 1e-4, "GSC streamed frames: the card agrees with the CPU plain path")
     check(len(words_g) > 0 and math.isfinite(score_g), "the GSC streaming recogniser gives words")
+
+    # ---- 7. BASELINE config 1 ------------------------------------------------
+    # The synthetic corpus (the port's copy of golden/corpus.py), MFCC + CMN
+    # on the card, whole-word GMM-HMMs trained on the card from a flat start
+    # (4 Viterbi-EM iterations over 60 utterances, as
+    # tests/test_asr_smallvocab.py trains them), forced alignment through the
+    # banded kernel, the word-loop decode, the 8-ch delay-and-sum path, and
+    # the phone task's bigram HCLG decode.
+    def c1_feats(x):
+        return ft.cmn(ft.mfcc(torch.as_tensor(np.asarray(x, np.float32), device=dev),
+                              SR)).cpu().numpy()
+
+    def host_copy(p_):
+        return gmm.GmmParams(p_.means.cpu(), p_.variances.cpu(), p_.logweights.cpu())
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize()
+        return out_, time.perf_counter() - t0_
+
+    def wer_of(refs, hyps):
+        sc = WerScorer()
+        for ref, hyp in zip(refs, hyps):
+            sc.add(ref, hyp)
+        return sc
+
+    train1 = corpus.make_corpus(60, seed=0)
+    feats1 = [c1_feats(x) for _, x in train1]
+    words1 = [ws for ws, _ in train1]
+    task1 = smallvocab.SmallVocabTask(corpus.VOCAB)
+    params1, t_train1 = timed(lambda: counted(
+        "config 1 train (60 utterances, 4 Viterbi-EM iterations)",
+        lambda: trainer.train(task1, feats1, words1, num_comp=2, iters=4), {}))
+    params1_cpu = trainer.train(task1, feats1, words1, num_comp=2, iters=4, device="cpu")
+    # the card's and the CPU's training on the same features: float32 sums in
+    # another order (GMM matmul, einsum accumulators) over 4 iterations whose
+    # alignments are equal; measured on the CPU against the JAX package the
+    # trainers agree to ~4e-5 relative (tests/test_torch_trainer.py, 5e-4)
+    e_train = max(float(((getattr(params1, n).cpu() - getattr(params1_cpu, n)).abs()
+                         / (getattr(params1_cpu, n).abs() + 1)).max())
+                  for n in ("means", "variances", "logweights"))
+    print(f"config 1 train: 60 utterances ({sum(len(f) for f in feats1)} frames, longest "
+          f"{max(len(f) for f in feats1)}; chains of up to "
+          f"{max(len(task1.align_graph(w)[0]) for w in words1)} states), 4 iterations: "
+          f"{t_train1:.3f} s on the host clock [{smi}]; card vs CPU plain path trained "
+          f"means, variances and log-weights max |a - b| / (|b| + 1) {e_train:.2e} "
+          "(bound 5e-4)")
+    check(e_train <= 5e-4, "config 1: the card's training agrees with the CPU plain path")
+
+    aligns, t_align = timed(lambda: counted(
+        "config 1 force-align (60 utterances)",
+        lambda: [apath.force_align(task1, params1, f, w) for f, w in zip(feats1, words1)],
+        {"viterbi": len(feats1)}))
+    p1_host = host_copy(params1)
+    ties = 0
+    for f, w, a in zip(feats1, words1, aligns):
+        ref = apath.force_align(task1, p1_host, f, w)     # the CPU: dense viterbi
+        check(len(a.segments) == len(ref.segments) == len(task1.align_graph(w)[0])
+              and np.isfinite(a.score), "config 1: an alignment visits every chain state")
+        if a.segments != ref.segments:
+            # a tie: both paths score the same on the CPU's log-likelihoods
+            ids, A1, init1, final1 = task1.align_graph(w)
+            ll1 = gmm.loglik(p1_host, torch.as_tensor(f)).double().numpy()[:, ids]
+
+            def score(segs):
+                pos = np.repeat(np.arange(len(segs)), [e - b for _, b, e in segs])
+                return (init1[0] + final1[-1] + ll1[np.arange(len(pos)), pos].sum()
+                        + A1[pos[:-1], pos[1:]].sum())
+
+            tie = abs(score(a.segments) - score(ref.segments)) <= 1e-4 * abs(score(ref.segments))
+            check(tie, "config 1: the card's alignment differs from the CPU's off a tie")
+            ties += 1
+        check(abs(a.score - ref.score) <= 1e-3 * abs(ref.score),
+              "config 1: alignment scores, card vs CPU")
+    print(f"config 1 force-align: 60 utterances through the banded kernel in {t_align:.3f} s; "
+          f"segments equal to the CPU's dense alignment in {len(aligns) - ties} of 60, "
+          f"{ties} at an exact-score tie (banded keeps self, dense advances)")
+
+    eval1 = corpus.make_corpus(10, seed=100)
+    feats_e = [c1_feats(x) for _, x in eval1]
+    audio_e = sum(len(x) for _, x in eval1) / SR
+    hyps_e, t_dec = timed(lambda: counted("config 1 clean decode (10 utterances)",
+                                          lambda: trainer.decode(task1, params1, feats_e), {}))
+    wer_e = wer_of([ws for ws, _ in eval1], hyps_e)
+    hyps_e_cpu = trainer.decode(task1, params1_cpu, feats_e)
+    print(f"config 1 clean decode, 10 utterances: {wer_e} (gate 0.05); {t_dec:.3f} s = "
+          f"{audio_e / t_dec:.1f} audio-s/s on the host clock [{smi}]; words equal to the CPU "
+          f"plain path's (its own training) {hyps_e == hyps_e_cpu}")
+    check(wer_e.wer <= 0.05, "config 1: clean decode WER")
+    check(hyps_e == hyps_e_cpu, "config 1: clean decode words, card vs CPU")
+
+    # 8-ch delay-and-sum: a linear 4 cm array, the source at (0.4, 1.8, 0.2)
+    # m in free field (fractional delays as an rfft phase shift) and white
+    # sensor noise at 10 dB SNR, as tests/test_asr_smallvocab.py records it
+    POS1 = np.asarray(ArrayGeometry.linear(8, 0.04).positions)
+    SRC1 = np.array([0.4, 1.8, 0.2])
+    taus1 = design.steering_delays(POS1, SRC1, 343.0, SR)
+    w1 = bf.ds_weights(bf.steering_vectors(
+        torch.as_tensor((taus1 / SR).astype(np.float32), device=dev), cfg.M, SR))
+    rs1 = np.random.default_rng(7)
+
+    def record8(x):
+        nfft = 1 << int(np.ceil(np.log2(2 * len(x))))
+        f_ = np.arange(nfft // 2 + 1) / nfft
+        xm = np.fft.irfft(np.fft.rfft(x, nfft)[None] * np.exp(-2j * np.pi * f_[None]
+                                                             * taus1[:, None]), nfft)[:, :len(x)]
+        xm += rs1.standard_normal(xm.shape) * np.sqrt(np.mean(x ** 2) / 10.0)
+        return xm.astype(np.float32)
+
+    eval_bf = corpus.make_corpus(6, seed=200)
+    x_bf = [record8(x) for _, x in eval_bf]
+    audio_bf = sum(x.shape[-1] for x in x_bf) / SR
+
+    def beamformed():
+        feats_b, aligns_b = [], []
+        for x, (ws, _) in zip(x_bf, eval_bf):
+            xt = torch.as_tensor(x, device=dev)
+            y = fb.synthesis(bf.apply_weights(fb.analysis(xt, cfg), w1), cfg, xt.shape[-1])
+            feats_b.append(ft.cmn(ft.mfcc(y, SR)).cpu().numpy())
+            aligns_b.append(apath.force_align(task1, params1, feats_b[-1], ws))
+        return feats_b, aligns_b, trainer.decode(task1, params1, feats_b)
+
+    (feats_b, aligns_b, hyps_b), t_bf = timed(lambda: counted(
+        "config 1 beamformed (analysis -> DS -> synthesis -> MFCC -> align, decode)",
+        beamformed, {"analysis": len(x_bf), "synthesis": len(x_bf), "viterbi": len(x_bf)}))
+    wer_b = wer_of([ws for ws, _ in eval_bf], hyps_b)
+    hyps_b_cpu = trainer.decode(task1, params1_cpu, feats_b)
+    print(f"config 1 beamformed, 6 utterances: {wer_b} (gate 0.15); the path took {t_bf:.3f} "
+          f"s = {audio_bf / t_bf:.1f} audio-s/s on the host clock [{smi}]; words equal to "
+          f"the CPU plain path's on the same features {hyps_b == hyps_b_cpu}")
+    check(wer_b.wer <= 0.15, "config 1: beamformed decode WER")
+    check(hyps_b == hyps_b_cpu, "config 1: beamformed decode words, card vs CPU")
+    check(all(np.isfinite(a.score) and a.segments[-1][2] == len(f)
+              for a, f in zip(aligns_b, feats_b)), "config 1: beamformed alignments")
+
+    # the phone task: the same training, the bigram HCLG (the port's WFST
+    # core) and the dense WFST decode over the clean and beamformed audio
+    ptask = phone_task.PhoneTask(corpus.VOCAB, states_per_phone=2)
+    pparams, t_ptrain = timed(lambda: trainer.train(ptask, feats1, words1, num_comp=2, iters=4))
+    P1 = len(ptask.phones) - 1
+    G1 = lm.arpa_to_fst(lm.train_arpa_bigram(words1, ptask.vocab), ptask.words)
+    L1, ndis1 = hclg.build_lexicon_fst(ptask.lexicon, ptask.phones, ptask.words, sil_phone="sil")
+    pg1 = pack(hclg.compose_hclg(hclg.build_hmm_fst(P1, ndis1, states_per_phone=ptask.spp), L1,
+                                 G1, P1, ndis1))
+    graph1 = wd.to_device(pg1)
+
+    def phone_decode(g, p_, feats_list, device):
+        return [wd.words_from_olabels(wd.decode(g, gmm.loglik(p_, torch.as_tensor(
+            f, device=device)))[0], ptask.words) for f in feats_list]
+
+    hyps_p, t_wfst = timed(lambda: counted(
+        "config 1 phone task, bigram HCLG decode (clean + beamformed)",
+        lambda: phone_decode(graph1, pparams, feats_e + feats_b, dev), {}))
+    hyps_p_cpu = phone_decode(wd.to_device(pg1, device="cpu"), host_copy(pparams),
+                              feats_e + feats_b, "cpu")
+    wer_pc = wer_of([ws for ws, _ in eval1], hyps_p[:10])
+    wer_pb = wer_of([ws for ws, _ in eval_bf], hyps_p[10:])
+    print(f"config 1 phone task: trained in {t_ptrain:.3f} s; HCLG {pg1.num_states} states, "
+          f"{pg1.num_arcs} arcs; decode clean {wer_pc}, beamformed {wer_pb}; {t_wfst:.3f} s = "
+          f"{(audio_e + audio_bf) / t_wfst:.1f} audio-s/s on the host clock [{smi}]; words "
+          f"equal to the CPU plain path's (same model) {hyps_p == hyps_p_cpu}")
+    check(hyps_p == hyps_p_cpu, "config 1 phone task: decode words, card vs CPU")
+    check(wer_pc.wer <= 0.5, "config 1 phone task: clean decode recognises the corpus")
+
     print(f"main path launches, all paths: {counts}")
 
     kernels = []
@@ -897,10 +1205,11 @@ def main() -> int:
                 "synthesis": "dsr_tpu/ops/pallas/filterbank.py:710",
                 "select": "dsr_tpu/ops/pallas/select.py:221",
                 "gsc": "dsr_tpu/ops/pallas/gsc.py:27",
-                "steering": "dsr_tpu/ops/pallas/steering.py:34"}
+                "steering": "dsr_tpu/ops/pallas/steering.py:34",
+                "viterbi": "dsr_tpu/ops/pallas/viterbi.py:35"}
     sources = {"analysis": "filterbank.cu", "analysis_beamform": "filterbank.cu",
                "synthesis": "filterbank.cu", "select": "select.cu", "gsc": "gsc.cu",
-               "steering": "steering.cu"}
+               "steering": "steering.cu", "viterbi": "viterbi.cu"}
     for name, source in sources.items():
         r = record[name]
         kernels.append({"name": name, "route": "cuda",

@@ -32,6 +32,7 @@ SOURCES = {
     "select": (PACKAGE / "ops" / "cuda" / "csrc" / "select.cu", "nvcc"),
     "gsc": (PACKAGE / "ops" / "cuda" / "csrc" / "gsc.cu", "nvcc"),
     "steering": (PACKAGE / "ops" / "cuda" / "csrc" / "steering.cu", "nvcc"),
+    "viterbi": (PACKAGE / "ops" / "cuda" / "csrc" / "viterbi.cu", "nvcc"),
     "wfst": (PACKAGE / "asr" / "fsm" / "csrc" / "wfst.cpp", "g++"),
 }
 

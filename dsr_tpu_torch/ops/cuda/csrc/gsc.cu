@@ -2,7 +2,7 @@
 // frame recurrence, per (utterance, subband bin), in one launch.  Plain C
 // interface, loaded with ctypes by dsr_tpu_torch/ops/cuda/gsc.py; the entry
 // point launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() (or kNoFit for a channel count it does not take).
+// cudaGetLastError() (or kNoFit for an input it does not take).
 //
 // Replaces dsr_tpu/ops/pallas/gsc.py:27 _gsc_kernel.
 //
@@ -46,6 +46,18 @@
 // was).  Spreading each bin's z over N-1 lanes, or a two-phase version (all
 // frames' z first, in parallel, at the cost of writing and reading z, 58 MB
 // at U = 8), would take the O(N^2) work off the one warp's path.
+//
+// More than 16 channels (gsc_warp_kernel).  At N = 64 one bin's B alone is
+// 64 x 63 x 8 B = 32 KB and wa is 63 complex values, so the per-thread
+// layout above cannot hold.  There one warp takes one (utterance, bin): the
+// lanes own B's N-1 columns (two each at N = 64) and the matching z and wa
+// entries, the frame's x sits in shared memory for all lanes, and yc, wa^H z,
+// |z|^2 and |wa|^2 are summed over the lanes by butterfly shuffles (two
+// reductions per frame).  B is copied to shared memory when it fits beside
+// the vectors (N <= ~165 on an H100), else read through L1 from device
+// memory; the vectors (wq, x, z, wa) live in shared memory, or for a channel
+// count beyond ~7,000 in the caller's global scratch.  Same numerics as
+// above: IEEE sqrt and division, only the order of the sums differs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,6 +191,142 @@ gsc_kernel(const float2* __restrict__ X, const float2* __restrict__ wq,
   for (int m = 0; m < NM; ++m) wa_out[bk * NM + m] = make_float2(war[m], wai[m]);
 }
 
+// ---- N > 16: one warp per (utterance, bin) ---------------------------------
+
+constexpr int kPre = 4;   // x[lane + 32 j], j < kPre, of the next frame held in registers
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// vec: wq (N), x (N), z (N-1), wa (N-1) float2 of this (b, k), in shared
+// memory (scratch null) or at scratch + (b K + k) (2N + 2(N-1)); B in shared
+// memory after the vectors when b_shared, else read from device memory.
+__global__ void __launch_bounds__(32)
+gsc_warp_kernel(const float2* __restrict__ X, const float2* __restrict__ wq,
+                const float2* __restrict__ B, const float2* __restrict__ wa0,
+                float2* __restrict__ Y, float2* __restrict__ wa_out, float2* scratch, int N,
+                int T, int K, int b_shared, float mu, float eps, float cap) {
+  extern __shared__ __align__(16) float2 shw[];
+  const int lane = threadIdx.x, k = blockIdx.x, b = blockIdx.y, NM = N - 1;
+  const size_t bk = static_cast<size_t>(b) * K + k;
+  const int nvec = 2 * N + 2 * NM;
+  float2* vec = scratch ? scratch + bk * nvec : shw;
+  float2* wq_s = vec;
+  float2* x_s = wq_s + N;
+  float2* z_s = x_s + N;
+  float2* wa_s = z_s + NM;
+  const float2* Bg = B + bk * N * NM;
+  const float2* Bs = Bg;
+  if (b_shared) {
+    float2* bsh = scratch ? shw : shw + nvec;
+    for (int i = lane; i < N * NM; i += 32) bsh[i] = ld(Bg + i);
+    Bs = bsh;
+  }
+  for (int n = lane; n < N; n += 32) wq_s[n] = ld(wq + bk * N + n);
+  for (int m = lane; m < NM; m += 32) wa_s[m] = wa0 ? ld(wa0 + bk * NM + m) : make_float2(0.f, 0.f);
+
+  // X[b, n, t, k] = Xb[(n * T + t) * K]
+  const float2* Xb = X + static_cast<size_t>(b) * N * T * K + k;
+  const size_t nstride = static_cast<size_t>(T) * K;
+  float2* Yb = Y + static_cast<size_t>(b) * T * K + k;
+  float2 xn[kPre];
+#pragma unroll
+  for (int j = 0; j < kPre; ++j) {
+    const int n = lane + 32 * j;
+    if (n < N) xn[j] = ld(Xb + n * nstride);
+  }
+  for (int t = 0; t < T; ++t) {
+    __syncwarp();   // every lane is done with the previous frame's x
+#pragma unroll
+    for (int j = 0; j < kPre; ++j) {
+      const int n = lane + 32 * j;
+      if (n < N) x_s[n] = xn[j];
+    }
+    for (int n = lane + 32 * kPre; n < N; n += 32)
+      x_s[n] = ld(Xb + n * nstride + static_cast<size_t>(t) * K);
+    if (t + 1 < T) {
+#pragma unroll
+      for (int j = 0; j < kPre; ++j) {
+        const int n = lane + 32 * j;
+        if (n < N) xn[j] = ld(Xb + n * nstride + static_cast<size_t>(t + 1) * K);
+      }
+    }
+    __syncwarp();
+
+    // the lane's parts of yc = wq^H x, z = B^H x (its columns), |z|^2, wa^H z
+    float ycr = 0.f, yci = 0.f;
+    for (int n = lane; n < N; n += 32) {
+      const float2 w = wq_s[n], x = x_s[n];
+      ycr += w.x * x.x + w.y * x.y;
+      yci += w.x * x.y - w.y * x.x;
+    }
+    float zn = 0.f, ar = 0.f, ai = 0.f;
+    for (int m = lane; m < NM; m += 32) {
+      float zr = 0.f, zi = 0.f;
+      for (int n = 0; n < N; ++n) {
+        const float2 bb = Bs[n * NM + m], x = x_s[n];
+        zr += bb.x * x.x + bb.y * x.y;
+        zi += bb.x * x.y - bb.y * x.x;
+      }
+      z_s[m] = make_float2(zr, zi);
+      zn += zr * zr + zi * zi;
+      const float2 w = wa_s[m];
+      ar += w.x * zr + w.y * zi;
+      ai += w.x * zi - w.y * zr;
+    }
+    ycr = warp_sum(ycr);
+    yci = warp_sum(yci);
+    zn = warp_sum(zn);
+    ar = warp_sum(ar);
+    ai = warp_sum(ai);
+    const float yr = ycr - ar, yi = yci - ai;
+    if (lane == 0) Yb[static_cast<size_t>(t) * K] = make_float2(yr, yi);
+    const float g = mu / (zn + eps);
+    float s = 0.f;
+    for (int m = lane; m < NM; m += 32) {
+      const float2 z = z_s[m];
+      float2 w = wa_s[m];
+      w.x += (z.x * yr + z.y * yi) * g;     // z conj(y)
+      w.y += (z.y * yr - z.x * yi) * g;
+      wa_s[m] = w;
+      s += w.x * w.x + w.y * w.y;
+    }
+    const float scale = fminf(1.f, cap / fmaxf(sqrtf(warp_sum(s)), 1e-30f));
+    for (int m = lane; m < NM; m += 32) {
+      float2 w = wa_s[m];
+      w.x *= scale;
+      w.y *= scale;
+      wa_s[m] = w;
+    }
+  }
+  for (int m = lane; m < NM; m += 32) wa_out[bk * NM + m] = wa_s[m];
+}
+
+int smem_optin(int* bytes) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(e);
+}
+
+// Where the warp kernel keeps its vectors and B for N channels: 0 (or a
+// CUDA error), with *vec_shared and *b_shared set.
+int warp_layout(int N, int* vec_shared, int* b_shared, size_t* smem) {
+  int optin;
+  const int rc = smem_optin(&optin);
+  if (rc) return rc;
+  const size_t vec = (4 * static_cast<size_t>(N) - 2) * sizeof(float2);
+  const size_t bm = static_cast<size_t>(N) * (N - 1) * sizeof(float2);
+  *vec_shared = vec <= static_cast<size_t>(optin);
+  *b_shared = (*vec_shared ? vec : 0) + bm <= static_cast<size_t>(optin);
+  *smem = (*vec_shared ? vec : 0) + (*b_shared ? bm : 0);
+  return 0;
+}
+
 template <int N>
 int launch(const float2* X, const float2* wq, const float2* B, const float2* wa0, float2* Y,
            float2* wa, int U, int T, int K, float mu, float eps, float cap,
@@ -210,17 +358,47 @@ int dispatch(int n, const float2* X, const float2* wq, const float2* B, const fl
 
 extern "C" {
 
+// Global scratch (float2 elements) the call needs for U utterances of K
+// bins at N channels: 0 unless the warp kernel's vectors exceed shared
+// memory; negative for a CUDA error.
+long long dsr_gsc_scratch(int U, int N, int K) {
+  if (N <= kMaxN) return 0;
+  int vec_shared, b_shared;
+  size_t smem;
+  const int rc = warp_layout(N, &vec_shared, &b_shared, &smem);
+  if (rc) return -rc;
+  return vec_shared ? 0 : static_cast<long long>(U) * K * (4 * static_cast<long long>(N) - 2);
+}
+
 // X (U, N, T, K), wq (U, K, N), B (U, K, N, N-1), wa0 (U, K, N-1) or null,
 // all complex64 as interleaved float2 → Y (U, T, K), wa (U, K, N-1).
-// 2 <= N <= 16, T >= 1.
+// N >= 2, T >= 1; scratch as dsr_gsc_scratch asks (null when 0).
 int dsr_gsc_nlms(const void* X, const void* wq, const void* B, const void* wa0, void* Y,
                  void* wa, int U, int N, int T, int K, float mu, float eps, float cap,
-                 void* stream) {
-  if (N < 2 || N > kMaxN || T < 1) return kNoFit;
-  return dispatch<2>(N, static_cast<const float2*>(X), static_cast<const float2*>(wq),
-                     static_cast<const float2*>(B), static_cast<const float2*>(wa0),
-                     static_cast<float2*>(Y), static_cast<float2*>(wa), U, T, K, mu, eps, cap,
-                     static_cast<cudaStream_t>(stream));
+                 void* scratch, void* stream) {
+  if (N < 2 || T < 1) return kNoFit;
+  const float2* X2 = static_cast<const float2*>(X);
+  const float2* wq2 = static_cast<const float2*>(wq);
+  const float2* B2 = static_cast<const float2*>(B);
+  const float2* wa02 = static_cast<const float2*>(wa0);
+  float2* Y2 = static_cast<float2*>(Y);
+  float2* wa2 = static_cast<float2*>(wa);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= kMaxN) return dispatch<2>(N, X2, wq2, B2, wa02, Y2, wa2, U, T, K, mu, eps, cap, st);
+  int vec_shared, b_shared;
+  size_t smem;
+  const int rc = warp_layout(N, &vec_shared, &b_shared, &smem);
+  if (rc) return rc;
+  if (!vec_shared && scratch == nullptr) return kNoFit;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        gsc_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  gsc_warp_kernel<<<dim3(K, U), 32, smem, st>>>(
+      X2, wq2, B2, wa02, Y2, wa2, vec_shared ? nullptr : static_cast<float2*>(scratch), N, T,
+      K, b_shared, mu, eps, cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -36,19 +36,26 @@
 // happens in shared memory.
 //
 // Layout: one block per (chunk of at most `chunk` candidates, utterance),
-// 1024 threads.  With one chunk (n <= chunk; every pool of the split
-// decoders and the dense monophone pool) one launch finishes the job.  A
-// larger pool (the dense triphone one, 512 x 263 candidates) takes two: the
-// first writes each chunk's top kcap recombined candidates, without the
-// beam, plus a flag that says whether the chunk held a duplicate dst (or
-// had to drop recombined candidates); the second runs the one-chunk routine
-// over those lists.  That is exact: a dst whose best candidate misses its
-// chunk's top kcap is beaten by kcap distinct dsts with higher keys, so it
-// cannot be in the utterance's top kcap; and the beam's max is the best
-// candidate, which every chunk list keeps.  The flags reproduce the NEG
-// that recombined losers add to max(val); they are set conservatively on a
+// 1024 threads; each launch is one pass, and the caller
+// (dsr_tpu_torch/ops/cuda/select.py) chains the passes.  With one chunk
+// (n <= 16,384; every pool of the split decoders and the dense monophone
+// pool) one pass finishes the job.  A larger pool (the dense triphone one,
+// 512 x 263 candidates) takes a first pass that writes each chunk's top
+// kcap recombined candidates, without the beam, plus a flag that says
+// whether the chunk held a duplicate dst (or had to drop recombined
+// candidates); then, while the lists exceed one block, merge passes that run
+// the same routine over groups of floor(16,384 / kcap) lists (the flags of
+// a group OR-ed into its merged list's flag); then the final pass over the
+// last lists.  That is exact: a dst whose best candidate misses its chunk's
+// (or group's) top kcap is beaten by kcap distinct dsts with higher keys,
+// so it cannot be in the utterance's top kcap; and the beam's max is the
+// best candidate, which every list keeps.  The flags reproduce the NEG that
+// recombined losers add to max(val); they are set conservatively on a
 // dropped candidate, which matters only when every candidate lies below
-// NEG and the beam exceeds ~1e22.
+// NEG and the beam exceeds ~1e22.  When kcap exceeds half a block, lists
+// cannot shrink by merging: that case is one pass with one block per
+// utterance whose sort buffers live in the caller's global scratch (13
+// bytes per candidate, padded to a power of two) instead of shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,20 +121,26 @@ __device__ float block_max(float v, float* red) {
 
 // partial: write the chunk's top kcap recombined candidates (dst -1 marks an
 // empty slot) and its flag; otherwise beam-prune and write the final slots.
-// dup_in (final pass of a two-pass call): n_dup flags per utterance.
+// dup_in (a pass over earlier lists): n_dup flags per utterance, of which
+// block c takes [c * group, (c + 1) * group).  gscratch: the sort buffers
+// in device memory (13 * cap bytes per block) instead of shared memory.
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
               const int* __restrict__ arc, const float* __restrict__ beam,
-              const int* __restrict__ dup_in, int n_dup, int n, int chunk, int cap,
-              int kcap, int partial, float* __restrict__ out_s, int* __restrict__ out_d,
-              int* __restrict__ out_a, int* __restrict__ dup_out) {
+              const int* __restrict__ dup_in, int n_dup, int group, int n, int chunk,
+              int cap, int kcap, int partial, float* __restrict__ out_s,
+              int* __restrict__ out_d, int* __restrict__ out_a, int* __restrict__ dup_out,
+              unsigned char* __restrict__ gscratch) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* key = reinterpret_cast<uint64_t*>(smem);
-  uint32_t* pay = reinterpret_cast<uint32_t*>(smem + 8 * static_cast<size_t>(cap));
-  unsigned char* flag = smem + 12 * static_cast<size_t>(cap);
-  float* red = reinterpret_cast<float*>(smem + 13 * static_cast<size_t>(cap));
-
   const int c = blockIdx.x, u = blockIdx.y, nchunks = gridDim.x;
+  unsigned char* buf = gscratch ? gscratch + 13 * static_cast<size_t>(cap) *
+                                                 (static_cast<size_t>(u) * nchunks + c)
+                                : smem;
+  uint64_t* key = reinterpret_cast<uint64_t*>(buf);
+  uint32_t* pay = reinterpret_cast<uint32_t*>(buf + 8 * static_cast<size_t>(cap));
+  unsigned char* flag = buf + 12 * static_cast<size_t>(cap);
+  float* red = reinterpret_cast<float*>(gscratch ? smem : smem + 13 * static_cast<size_t>(cap));
+
   const int lo = c * chunk;
   const int m = min(n - lo, chunk);
   int np2 = 32;
@@ -163,14 +176,14 @@ select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
     if (valid) vmax = fmaxf(vmax, first ? unordered(~static_cast<uint32_t>(k), pay[i] & 1u) : kNeg);
     dup |= valid && !first;
   }
+  if (dup_in != nullptr && threadIdx.x == 0)
+    for (int j = c * group; j < min(n_dup, (c + 1) * group); ++j)
+      dup |= dup_in[static_cast<size_t>(u) * n_dup + j] != 0;
   dup = __syncthreads_or(dup);
   float thr = 0.0f;
   if (!partial) {
     float mx = block_max(vmax, red);
-    bool neg_in_max = false;
-    if (dup_in != nullptr)
-      for (int j = 0; j < n_dup; ++j) neg_in_max |= dup_in[u * n_dup + j] != 0;
-    if (neg_in_max) mx = fmaxf(mx, kNeg);
+    if (dup) mx = fmaxf(mx, kNeg);
     thr = mx - beam[u];
   }
 
@@ -223,24 +236,31 @@ select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
 
 size_t smem_bytes(int cap) { return 13 * static_cast<size_t>(cap) + 33 * sizeof(float); }
 
+int cap_of(int len) {
+  int c = 32;
+  while (c < len) c <<= 1;
+  return c;
+}
+
 }  // namespace
 
 extern "C" {
 
-// score (U, n) f32, dst and arc (U, n) i32, beam (U,) f32 -> out_s (U, kcap)
-// f32, out_d and out_a (U, kcap) i32.  chunk: candidates per block, a power
-// of two <= kMaxChunk.  When n > chunk the caller passes scratch for the
-// first pass: tmp_s/tmp_d/tmp_a (U, ceil(n / chunk) * kcap) and tmp_dup
-// (U, ceil(n / chunk)); their lists must fit one block (<= chunk).
-int dsr_select(const float* score, const int* dst, const int* arc, const float* beam,
-               int U, int n, int kcap, int chunk, float* out_s, int* out_d, int* out_a,
-               float* tmp_s, int* tmp_d, int* tmp_a, int* tmp_dup, void* stream) {
-  if (U < 1 || n < 1 || kcap < 1 || chunk < 32 || chunk > kMaxChunk || (chunk & (chunk - 1)))
-    return kNoFit;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nchunks = (n + chunk - 1) / chunk;
-  const int n2 = nchunks * kcap;
-  if (nchunks > 1 && n2 > chunk) return kNoFit;
+// One pass over score (U, n) f32, dst and arc (U, n) i32 (dst -1: an empty
+// slot of an earlier pass's list), beam (U,) f32, in ceil(n / chunk)
+// blocks per utterance.  partial: writes each block's list to out_s/out_d/
+// out_a (U, blocks * kcap) and its flag to dup_out (U, blocks); otherwise
+// (one block per utterance) the final slots (U, kcap).  dup_in: the n_dup
+// flags per utterance of the input lists, `group` lists per block, or null.
+// gscratch: null when a block's candidates fit shared memory (chunk <=
+// 16,384), else 13 * pow2(chunk) bytes per block of device memory.
+int dsr_select_pass(const float* score, const int* dst, const int* arc, const float* beam,
+                    const int* dup_in, int n_dup, int group, int U, int n, int chunk, int kcap,
+                    int partial, float* out_s, int* out_d, int* out_a, int* dup_out,
+                    void* gscratch, void* stream) {
+  if (U < 1 || n < 1 || kcap < 1 || chunk < 1) return kNoFit;
+  const int blocks = (n + chunk - 1) / chunk;
+  if ((!partial && blocks != 1) || (gscratch == nullptr && chunk > kMaxChunk)) return kNoFit;
   static bool attr = false;
   if (!attr) {
     cudaError_t e = cudaFuncSetAttribute(select_kernel,
@@ -249,27 +269,11 @@ int dsr_select(const float* score, const int* dst, const int* arc, const float* 
     if (e != cudaSuccess) return static_cast<int>(e);
     attr = true;
   }
-  auto cap_of = [](int len) {
-    int c = 32;
-    while (c < len) c <<= 1;
-    return c;
-  };
-  if (nchunks == 1) {
-    const int cap = cap_of(n);
-    select_kernel<<<dim3(1, U), kThreads, smem_bytes(cap), st>>>(
-        score, dst, arc, beam, nullptr, 0, n, chunk, cap, kcap, 0, out_s, out_d, out_a,
-        nullptr);
-    return static_cast<int>(cudaGetLastError());
-  }
-  select_kernel<<<dim3(nchunks, U), kThreads, smem_bytes(chunk), st>>>(
-      score, dst, arc, beam, nullptr, 0, n, chunk, chunk, kcap, 1, tmp_s, tmp_d, tmp_a,
-      tmp_dup);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int cap = cap_of(n2);
-  select_kernel<<<dim3(1, U), kThreads, smem_bytes(cap), st>>>(
-      tmp_s, tmp_d, tmp_a, beam, tmp_dup, nchunks, n2, chunk, cap, kcap, 0, out_s, out_d,
-      out_a, nullptr);
+  const int cap = cap_of(n < chunk ? n : chunk);
+  const size_t smem = gscratch ? smem_bytes(0) : smem_bytes(cap);
+  select_kernel<<<dim3(blocks, U), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      score, dst, arc, beam, dup_in, n_dup, group, n, chunk, cap, kcap, partial, out_s, out_d,
+      out_a, dup_out, static_cast<unsigned char*>(gscratch));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -86,7 +86,9 @@ def _kernels() -> ctypes.CDLL:
     lib.dsr_fb_analysis.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_synthesis.argtypes = [p, p, p, i, i, i, i, i, ll, i, p]
-    for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform, lib.dsr_fb_synthesis):
+    lib.dsr_fb_layouts.argtypes = [i, i, i, p]
+    for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform, lib.dsr_fb_synthesis,
+               lib.dsr_fb_layouts):
         fn.restype = ctypes.c_int
     return lib
 
@@ -94,9 +96,23 @@ def _kernels() -> ctypes.CDLL:
 def _raise_on(rc: int, name: str, M: int, m: int, r: int) -> None:
     if rc == -1:
         raise ValueError(f"{name}: the config M={M} m={m} r={r} needs more shared memory "
-                         "per block than this card has")
+                         "per block than this card has, even in the smallest layout")
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed to launch: CUDA error {rc}")
+
+
+def layouts(M: int, m: int, r: int) -> dict:
+    """The kernels' block layouts for a config on the current card (the
+    analysis's bin groups, bins per group, DFT pairs per slab, staged
+    window, twiddle table; the synthesis's residues per block, frames per
+    tile, bins per slab, twiddle table; each block's shared memory)."""
+    out = (ctypes.c_int * 11)()
+    rc = _kernels().dsr_fb_layouts(M, m, M // r, out)
+    _raise_on(rc, "layouts", M, m, r)
+    keys = ("analysis_groups", "analysis_bins", "analysis_pairs_per_slab", "analysis_staged",
+            "analysis_table", "synthesis_residues", "synthesis_frames",
+            "synthesis_bins_per_slab", "synthesis_table", "analysis_smem", "synthesis_smem")
+    return dict(zip(keys, out))
 
 
 def analysis(x: torch.Tensor, hf: torch.Tensor, M: int, m: int, r: int, T: int) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """GSC-NLMS kernel for Hopper, its plain PyTorch twin, and the wrapper.
 
 Counterpart of `dsr_tpu/ops/pallas/gsc.py` (`gsc_nlms`): the generalised
-sidelobe canceller's whole frame recurrence in one launch (`csrc/gsc.cu`,
-one thread per utterance and bin, the active weights in registers).  The
+sidelobe canceller's whole frame recurrence in one launch (`csrc/gsc.cu`:
+up to 16 channels one thread per utterance and bin with the active weights
+in registers, above that one warp per utterance and bin).  The
 kernel's layout is the JAX wrapper's batched form, complex64 throughout:
 X (U, N, T, K), wq (U, K, N), B (U, K, N, N-1), wa0 (U, K, N-1) or None
 → (Y (U, T, K), wa (U, K, N-1)).
@@ -22,8 +23,6 @@ import torch
 
 from dsr_tpu_torch.ops.cuda import build
 from dsr_tpu_torch.ops.cuda.launch import check, on_cuda, stream
-
-MAX_CHANNELS = 16
 
 # Kernel launches since the last `reset_launches()`.
 launches = {"gsc": 0}
@@ -60,8 +59,10 @@ def gsc_nlms_plain(X: torch.Tensor, wq: torch.Tensor, B: torch.Tensor, mu: float
 def _kernel() -> ctypes.CDLL:
     lib = build.library("gsc")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dsr_gsc_nlms.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, f, p]
+    lib.dsr_gsc_nlms.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, f, p, p]
     lib.dsr_gsc_nlms.restype = ctypes.c_int
+    lib.dsr_gsc_scratch.argtypes = [i, i, i]
+    lib.dsr_gsc_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -72,9 +73,8 @@ def gsc_nlms(X: torch.Tensor, wq: torch.Tensor, B: torch.Tensor, mu: float = 0.1
     tensors = (X, wq, B) if wa0 is None else (X, wq, B, wa0)
     if not on_cuda("gsc_nlms", *tensors):
         return gsc_nlms_plain(X, wq, B, mu, eps, cap, wa0)
-    if not 2 <= N <= MAX_CHANNELS or T < 1:
-        raise ValueError(f"gsc_nlms: the kernel takes 2 to {MAX_CHANNELS} channels and at "
-                         f"least one frame, got N={N}, T={T}")
+    if N < 2 or T < 1:
+        raise ValueError(f"gsc_nlms: need at least 2 channels and one frame, got N={N}, T={T}")
     check("gsc_nlms X", X, torch.complex64, (U, N, T, K))
     check("gsc_nlms wq", wq, torch.complex64, (U, K, N))
     check("gsc_nlms B", B, torch.complex64, (U, K, N, N - 1))
@@ -84,10 +84,15 @@ def gsc_nlms(X: torch.Tensor, wq: torch.Tensor, B: torch.Tensor, mu: float = 0.1
     wa = torch.empty((U, K, N - 1), dtype=torch.complex64, device=X.device)
     if U * K == 0:
         return Y, wa
-    rc = _kernel().dsr_gsc_nlms(X.data_ptr(), wq.data_ptr(), B.data_ptr(),
-                                None if wa0 is None else wa0.data_ptr(), Y.data_ptr(),
-                                wa.data_ptr(), U, N, T, K, float(mu), float(eps), float(cap),
-                                stream())
+    lib = _kernel()
+    need = lib.dsr_gsc_scratch(U, N, K)
+    if need < 0:
+        raise RuntimeError(f"gsc kernel: CUDA error {-need} reading the device")
+    scratch = torch.empty(need, dtype=torch.complex64, device=X.device) if need else None
+    rc = lib.dsr_gsc_nlms(X.data_ptr(), wq.data_ptr(), B.data_ptr(),
+                          None if wa0 is None else wa0.data_ptr(), Y.data_ptr(), wa.data_ptr(),
+                          U, N, T, K, float(mu), float(eps), float(cap),
+                          None if scratch is None else scratch.data_ptr(), stream())
     if rc != 0:
         raise RuntimeError(f"gsc kernel failed to launch: CUDA error {rc}")
     launches["gsc"] += 1

@@ -37,8 +37,9 @@ from dsr_tpu_torch.ops.cuda.launch import check, on_cuda, stream
 
 NEG = -1e30
 # Candidates one thread block sorts in shared memory (a power of two; 13
-# bytes each).  Pools above it take two launches: per-chunk top-kcap lists,
-# then the same routine over those lists.
+# bytes each).  Pools above it take several launches: per-chunk top-kcap
+# lists, merge passes over groups of CHUNK // kcap lists while the lists
+# exceed one block, then the final pass over the last lists.
 CHUNK = 16384
 
 # Kernel launches since the last `reset_launches()`.
@@ -86,9 +87,33 @@ def recombine_topk_plain(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Ten
 def _kernel() -> ctypes.CDLL:
     lib = build.library("select")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dsr_select.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]
-    lib.dsr_select.restype = ctypes.c_int
+    lib.dsr_select_pass.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
+    lib.dsr_select_pass.restype = ctypes.c_int
     return lib
+
+
+def _pass(lists, beam, dup_in, group, chunk, kcap, partial, gscratch=None):
+    """One launch over (score, dst, arc) lists (U, n), in ceil(n / chunk)
+    blocks per utterance → (scores, dst, arc (U, blocks·kcap), flags
+    (U, blocks) or None)."""
+    cand, fdst, arcs = lists
+    U, n = cand.shape
+    blocks = -(-n // chunk) if partial else 1
+    dev = cand.device
+    out = (torch.empty((U, blocks * kcap), dtype=torch.float32, device=dev),
+           torch.empty((U, blocks * kcap), dtype=torch.int32, device=dev),
+           torch.empty((U, blocks * kcap), dtype=torch.int32, device=dev))
+    flags = torch.empty((U, blocks), dtype=torch.int32, device=dev) if partial else None
+    rc = _kernel().dsr_select_pass(
+        cand.data_ptr(), fdst.data_ptr(), arcs.data_ptr(), beam.data_ptr(),
+        None if dup_in is None else dup_in.data_ptr(), 0 if dup_in is None else dup_in.shape[1],
+        group, U, n, chunk, kcap, int(partial), *(t.data_ptr() for t in out),
+        None if flags is None else flags.data_ptr(),
+        None if gscratch is None else gscratch.data_ptr(), stream())
+    if rc != 0:
+        raise RuntimeError(f"select kernel failed to launch: CUDA error {rc}")
+    launches["select"] += 1
+    return out, flags
 
 
 def recombine_topk(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Tensor, beam,
@@ -109,26 +134,18 @@ def recombine_topk(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Tensor, b
     check("recombine_topk fdst", fdst, torch.int32, (U, N))
     check("recombine_topk arcs", arcs, torch.int32, (U, N))
     check("recombine_topk beam", beam, torch.float32, (U,))
-    nchunks = -(-N // CHUNK)
-    if nchunks > 1 and nchunks * kcap > CHUNK:
-        raise ValueError(f"recombine_topk: {N} candidates need {nchunks} chunks, whose "
-                         f"{nchunks * kcap} kept candidates exceed one block's {CHUNK}")
-    dev = cand.device
-    scores = torch.empty((U, kcap), dtype=torch.float32, device=dev)
-    dst = torch.empty((U, kcap), dtype=torch.int32, device=dev)
-    arc = torch.empty((U, kcap), dtype=torch.int32, device=dev)
-    if nchunks > 1:     # the chunks' top-kcap lists and their duplicate flags
-        tmp_s = torch.empty((U, nchunks * kcap), dtype=torch.float32, device=dev)
-        tmp_d = torch.empty((U, nchunks * kcap), dtype=torch.int32, device=dev)
-        tmp_a = torch.empty((U, nchunks * kcap), dtype=torch.int32, device=dev)
-        tmp_f = torch.empty((U, nchunks), dtype=torch.int32, device=dev)
-        tmp = [t.data_ptr() for t in (tmp_s, tmp_d, tmp_a, tmp_f)]
-    else:
-        tmp = [None] * 4
-    rc = _kernel().dsr_select(cand.data_ptr(), fdst.data_ptr(), arcs.data_ptr(),
-                              beam.data_ptr(), U, N, kcap, CHUNK, scores.data_ptr(),
-                              dst.data_ptr(), arc.data_ptr(), *tmp, stream())
-    if rc != 0:
-        raise RuntimeError(f"select kernel failed to launch: CUDA error {rc}")
-    launches["select"] += 1 if nchunks == 1 else 2
-    return scores, dst, arc
+    lists, flags = (cand, fdst, arcs), None
+    if N > CHUNK and 2 * kcap > CHUNK:
+        # lists of more than half a block cannot shrink by merging: one
+        # block per utterance sorts all N candidates in device memory
+        cap = 1 << max(5, (N - 1).bit_length())
+        scratch = torch.empty(U * 13 * cap, dtype=torch.uint8, device=cand.device)
+        return _pass(lists, beam, None, 0, N, kcap, False, scratch)[0]
+    if N > CHUNK:
+        lists, flags = _pass(lists, beam, None, 0, CHUNK, kcap, True)
+        group = CHUNK // kcap
+        while lists[0].shape[1] > CHUNK:
+            lists, flags = _pass(lists, beam, flags, group, group * kcap, kcap, True)
+    n = lists[0].shape[1]
+    return _pass(lists, beam, flags, 0 if flags is None else flags.shape[1], n, kcap,
+                 False)[0]

@@ -183,3 +183,57 @@ def phone_system(source):
     cuts = [0, 1500, 5000, 5600, 12000, xm.shape[-1]]
     chunks = [xm[:, a:b] for a, b in zip(cuts[:-1], cuts[1:])]
     return graph, params, xm, chunks
+
+
+# ---------------------------------------------------------------- config 1
+
+
+def config1_corpus(n=8, seed=0, vocab=None):
+    """A small training corpus from the port's corpus copy (equal to
+    golden.corpus's, tests/test_torch_corpus.py), its time-domain MFCC + CMN
+    features made by the port as float32 numpy arrays, and the transcripts;
+    `vocab` maps out-of-vocabulary words to its first word, as
+    tests/test_asr_smallvocab.py does for its BW gate."""
+    from dsr_tpu_torch.ops import features as ft
+    from dsr_tpu_torch.utils import corpus
+
+    utts = corpus.make_corpus(n, seed=seed)
+    feats = [ft.cmn(ft.mfcc(torch.as_tensor(x.astype(np.float32)), SR)).numpy()
+             for _, x in utts]
+    words = [[w if vocab is None or w in vocab else vocab[0] for w in ws] for ws, _ in utts]
+    return feats, words
+
+
+def smallvocab_pair(vocab=None):
+    """The JAX and the port's `SmallVocabTask` over the same vocabulary."""
+    from dsr_tpu.asr import smallvocab as jsv
+    from dsr_tpu_torch.asr import smallvocab as sv
+    from dsr_tpu_torch.utils import corpus
+
+    vocab = corpus.VOCAB if vocab is None else vocab
+    return jsv.SmallVocabTask(list(vocab)), sv.SmallVocabTask(list(vocab))
+
+
+def phone_pair(vocab=None, spp=2):
+    """The JAX and the port's `PhoneTask` over the same vocabulary."""
+    from dsr_tpu.asr import phone_task as jpt
+    from dsr_tpu_torch.asr import phone_task as pt
+    from dsr_tpu_torch.utils import corpus
+
+    vocab = corpus.VOCAB if vocab is None else vocab
+    return jpt.PhoneTask(list(vocab), states_per_phone=spp), pt.PhoneTask(list(vocab),
+                                                                          states_per_phone=spp)
+
+
+def gmm_pair(rng, S, C=2, D=13):
+    """A seeded diagonal GMM as the JAX package's GmmParams and the port's."""
+    import jax.numpy as jnp
+
+    from dsr_tpu.asr.am import gmm as jgmm
+    from dsr_tpu_torch.asr.am import gmm
+
+    means = rng.standard_normal((S, C, D)).astype(np.float32)
+    variances = (0.5 + rng.random((S, C, D))).astype(np.float32)
+    logw = np.log(rng.dirichlet(np.ones(C), size=S)).astype(np.float32)
+    return (jgmm.GmmParams(jnp.asarray(means), jnp.asarray(variances), jnp.asarray(logw)),
+            gmm.GmmParams(means, variances, logw))

@@ -1,6 +1,6 @@
 """The select kernel's plain twin against the Pallas select kernel, and
 the CUDA kernel's block routine (`ops/cuda/csrc/select.cu`: its keys and
-its two-pass split of large pools), transcribed to NumPy, against the twin.
+its passes over large pools), transcribed to NumPy, against the twin.
 The kernel itself is held to the twin on the card by chip_smoke.py.
 
 Tolerance: none.  The function only moves its input values, so outputs
@@ -70,14 +70,14 @@ def _block(s, d, a, beam, dup_in, kcap, partial):
     hi = key >> np.uint64(32)
     first = live & np.r_[True, hi[1:] != hi[:-1]]
     sv = _unordered((~key) & _LO, pay & 1)
-    dup = bool((live & ~first).any())
+    dup = bool((live & ~first).any()) or (dup_in is not None and bool(dup_in.any()))
     key2 = np.full(len(s), _NOKEY, np.uint64)
     pay2 = np.full(len(s), _NOPAY, np.uint32)
     if partial:
         m, v = first, sv
     else:
         mx = np.where(first, sv, F32NEG)[live].max()
-        if dup_in is not None and dup_in.any():
+        if dup:
             mx = max(mx, F32NEG)
         v = np.where(first, sv, F32NEG)
         v = np.where(v > np.float32(mx) - np.float32(beam), v, F32NEG).astype(np.float32)
@@ -98,24 +98,39 @@ def _block(s, d, a, beam, dup_in, kcap, partial):
     return out, dup or (kcap < len(s) and key2[kcap] != _NOKEY)
 
 
+def _partial_pass(lists, flags, beam, kcap, chunk, group):
+    """One partial launch: a block per `chunk` entries, each OR-ing the
+    flags of its `group` input lists into its own."""
+    s, d, a = lists
+    parts = [_block(s[i:i + chunk], d[i:i + chunk], a[i:i + chunk], beam,
+                    None if flags is None else flags[b * group:(b + 1) * group], kcap, True)
+             for b, i in enumerate(range(0, len(s), chunk))]
+    return ([np.concatenate([p[0][j] for p in parts]) for j in range(3)],
+            np.array([p[1] for p in parts]))
+
+
 def _kernel_in_numpy(s, d, a, beam, kcap, chunk):
-    if len(s) <= chunk:
-        return _block(s, d, a, beam, None, kcap, False)[0]
-    assert -(-len(s) // chunk) * kcap <= chunk     # as dsr_select requires
-    parts = [_block(s[i:i + chunk], d[i:i + chunk], a[i:i + chunk], beam, None, kcap, True)
-             for i in range(0, len(s), chunk)]
-    lists = [np.concatenate([p[0][j] for p in parts]) for j in range(3)]
-    return _block(*lists, beam, np.array([p[1] for p in parts]), kcap, False)[0]
+    """The passes `ops/cuda/select.py` chains: per-chunk lists, merge passes
+    over groups of chunk // kcap lists while they exceed a block, final."""
+    lists, flags = [s, d, a], None
+    if len(s) > chunk:
+        lists, flags = _partial_pass(lists, None, beam, kcap, chunk, 0)
+        while len(lists[0]) > chunk:
+            group = chunk // kcap
+            lists, flags = _partial_pass(lists, flags, beam, kcap, group * kcap, group)
+    return _block(*lists, beam, flags, kcap, False)[0]
 
 
 def test_kernel_blocks_in_numpy_match_twin():
-    """select.cu's key encoding and its two-pass split of a large pool
-    (per-chunk top-kcap lists and duplicate flags, then the one-pass
-    routine over the lists), transcribed to NumPy with small chunks, equal
-    the twin bit for bit."""
+    """select.cu's key encoding and its split of a large pool (per-chunk
+    top-kcap lists and duplicate flags, merge passes over groups of lists
+    while they exceed a block, then the one-pass routine over the last
+    lists), transcribed to NumPy with small chunks, equal the twin bit for
+    bit.  The last two cases take one and two merge passes."""
     for seed, (N, kcap, ndst, chunk) in enumerate([
             (2304, 256, 768, 16384), (5000, 32, 1700, 512), (3000, 128, 100, 1024),
-            (700, 40, 5000, 256), (20000, 256, 7000, 8192)]):
+            (700, 40, 5000, 256), (20000, 256, 7000, 8192), (20000, 64, 9000, 512),
+            (9000, 16, 40, 64)]):
         for beam in (40.0, 2.0, 1e9):
             c, d, a = select_case(seed, 1, N, ndst, grid=2.0, pad=0.15)
             c[0, ::50] = -0.0
