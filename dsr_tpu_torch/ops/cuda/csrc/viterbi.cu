@@ -21,11 +21,12 @@
 //
 // Design.  The TPU kernel made the frame its grid axis and kept delta in
 // VMEM between grid steps; blocks on this card run in no order, so one
-// block per utterance loops over the frames itself.  Threads own states
-// (a stride of blockDim, J states each in registers with their w_self and
-// w_adv); delta is double-buffered in shared memory, one __syncthreads()
-// per frame; ll[t+1] is loaded into registers while frame t computes, and
-// bp is written coalesced over states.  When 2 S floats exceed the shared
+// block per utterance loops over the frames itself.  Up to 1,024 states
+// (config 1's chains have at most 36) each thread owns one state, with its
+// w_self and w_adv in registers and ll[t+1] loaded while frame t computes;
+// above that, threads stride over the states.  delta is double-buffered in
+// shared memory, one __syncthreads() per frame, and bp is written coalesced
+// over states.  When 2 S floats exceed the shared
 // memory a block may opt in to (S above ~29,000), delta lives in the
 // caller's global scratch behind the same barrier.
 //
@@ -45,9 +46,9 @@ constexpr float kNeg = -1e30f;
 constexpr int kMaxThreads = 1024;
 constexpr int kNoFit = -1;
 
-// J > 0: each thread owns J states (s = tid + j * blockDim) in registers,
-// with the next frame's ll prefetched; J = 0: any S, a plain stride loop.
-template <int J>
+// kOne: each thread owns one state (S <= blockDim) in registers, with the
+// next frame's ll prefetched; otherwise any S, a plain stride loop.
+template <bool kOne>
 __global__ void __launch_bounds__(kMaxThreads)
 banded_kernel(const float* __restrict__ ll, const float* __restrict__ wself,
               const float* __restrict__ wadv, long long wstride, uint8_t* __restrict__ bp,
@@ -61,47 +62,35 @@ banded_kernel(const float* __restrict__ ll, const float* __restrict__ wself,
   const float* ws = wself + u * wstride;
   const float* wa = wadv + u * wstride;
 
-  if constexpr (J > 0) {
-    float r_ws[J], r_wa[J], r_ll[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int s = tid + j * bd;
-      if (s < S) {
-        r_ws[j] = ws[s];
-        r_wa[j] = wa[s];
-        cur[s] = (s == 0 ? 0.0f : kNeg) + llu[s];
-        bpu[s] = 0;
-        r_ll[j] = T > 1 ? llu[S + s] : 0.0f;
-      }
+  if constexpr (kOne) {
+    const int s = tid;
+    const bool own = s < S;
+    float r_ws = 0.0f, r_wa = 0.0f, r_ll = 0.0f;
+    if (own) {
+      r_ws = ws[s];
+      r_wa = wa[s];
+      cur[s] = (s == 0 ? 0.0f : kNeg) + llu[s];
+      bpu[s] = 0;
+      r_ll = T > 1 ? llu[S + s] : 0.0f;
     }
     __syncthreads();
     for (int t = 1; t < T; ++t) {
-      const float* lln = llu + static_cast<size_t>(t + 1) * S;
-      float ll_next[J];
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int s = tid + j * bd;
-        ll_next[j] = (s < S && t + 1 < T) ? lln[s] : 0.0f;
-      }
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int s = tid + j * bd;
-        if (s < S) {
-          const float stay = cur[s] + r_ws[j];
-          float v = stay;
-          uint8_t b = 0;
-          if (s > 0) {
-            const float adv = cur[s - 1] + r_wa[j];
-            if (adv > stay) {
-              v = adv;
-              b = 1;
-            }
+      const float ll_next = (own && t + 1 < T) ? llu[static_cast<size_t>(t + 1) * S + s] : 0.0f;
+      if (own) {
+        const float stay = cur[s] + r_ws;
+        float v = stay;
+        uint8_t b = 0;
+        if (s > 0) {
+          const float adv = cur[s - 1] + r_wa;
+          if (adv > stay) {
+            v = adv;
+            b = 1;
           }
-          nxt[s] = v + r_ll[j];
-          bpu[static_cast<size_t>(t) * S + s] = b;
         }
-        r_ll[j] = ll_next[j];
+        nxt[s] = v + r_ll;
+        bpu[static_cast<size_t>(t) * S + s] = b;
       }
+      r_ll = ll_next;
       __syncthreads();
       float* tmp = cur;
       cur = nxt;
@@ -146,19 +135,18 @@ int smem_optin(int* bytes) {
   return static_cast<int>(e);
 }
 
-template <int J>
+template <bool kOne>
 int launch(const float* ll, const float* ws, const float* wa, long long wstride, uint8_t* bp,
            float* delta, float* scratch, int U, int T, int S, cudaStream_t stream) {
   const size_t smem = scratch ? 0 : 2 * static_cast<size_t>(S) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        banded_kernel<J>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        banded_kernel<kOne>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int per = J > 0 ? J : 1;
-  int threads = ((S + per - 1) / per + 31) / 32 * 32;
-  threads = threads > kMaxThreads ? kMaxThreads : threads;
-  banded_kernel<J><<<U, threads, smem, stream>>>(ll, ws, wa, wstride, bp, delta, scratch, T, S);
+  const int threads = S < kMaxThreads ? (S + 31) / 32 * 32 : kMaxThreads;
+  banded_kernel<kOne><<<U, threads, smem, stream>>>(ll, ws, wa, wstride, bp, delta, scratch, T,
+                                                    S);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -186,14 +174,9 @@ int dsr_banded_viterbi(const float* ll, const float* wself, const float* wadv, l
   if (need && scratch == nullptr) return kNoFit;
   uint8_t* b = static_cast<uint8_t*>(bp);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (S <= kMaxThreads) return launch<1>(ll, wself, wadv, wstride, b, delta, scratch, U, T, S, st);
-  if (S <= 2 * kMaxThreads)
-    return launch<2>(ll, wself, wadv, wstride, b, delta, scratch, U, T, S, st);
-  if (S <= 4 * kMaxThreads)
-    return launch<4>(ll, wself, wadv, wstride, b, delta, scratch, U, T, S, st);
-  if (S <= 8 * kMaxThreads)
-    return launch<8>(ll, wself, wadv, wstride, b, delta, scratch, U, T, S, st);
-  return launch<0>(ll, wself, wadv, wstride, b, delta, scratch, U, T, S, st);
+  if (S <= kMaxThreads)
+    return launch<true>(ll, wself, wadv, wstride, b, delta, scratch, U, T, S, st);
+  return launch<false>(ll, wself, wadv, wstride, b, delta, scratch, U, T, S, st);
 }
 
 }  // extern "C"

@@ -85,10 +85,10 @@ def _kernels() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dsr_fb_analysis.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.dsr_fb_synthesis.argtypes = [p, p, p, i, i, i, i, i, ll, i, p]
-    lib.dsr_fb_layouts.argtypes = [i, i, i, p]
-    for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform, lib.dsr_fb_synthesis,
-               lib.dsr_fb_layouts):
+    lib.dsr_fb_synthesis_scratch.argtypes = [i, i, i, i, ll, i, p]
+    lib.dsr_fb_synthesis.argtypes = [p, p, p, p, i, i, i, i, i, ll, i, p]
+    for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform, lib.dsr_fb_synthesis_scratch,
+               lib.dsr_fb_synthesis):
         fn.restype = ctypes.c_int
     return lib
 
@@ -99,20 +99,6 @@ def _raise_on(rc: int, name: str, M: int, m: int, r: int) -> None:
                          "per block than this card has, even in the smallest layout")
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed to launch: CUDA error {rc}")
-
-
-def layouts(M: int, m: int, r: int) -> dict:
-    """The kernels' block layouts for a config on the current card (the
-    analysis's bin groups, bins per group, DFT pairs per slab, staged
-    window, twiddle table; the synthesis's residues per block, frames per
-    tile, bins per slab, twiddle table; each block's shared memory)."""
-    out = (ctypes.c_int * 11)()
-    rc = _kernels().dsr_fb_layouts(M, m, M // r, out)
-    _raise_on(rc, "layouts", M, m, r)
-    keys = ("analysis_groups", "analysis_bins", "analysis_pairs_per_slab", "analysis_staged",
-            "analysis_table", "synthesis_residues", "synthesis_frames",
-            "synthesis_bins_per_slab", "synthesis_table", "analysis_smem", "synthesis_smem")
-    return dict(zip(keys, out))
 
 
 def analysis(x: torch.Tensor, hf: torch.Tensor, M: int, m: int, r: int, T: int) -> torch.Tensor:
@@ -170,8 +156,17 @@ def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: 
     y = torch.empty((C, out_len), dtype=torch.float32, device=A.device)
     if y.numel() == 0:
         return y
-    rc = _kernels().dsr_fb_synthesis(A.data_ptr(), gf.data_ptr(), y.data_ptr(), C, T, M, m,
-                                     D, start, out_len, stream())
+    lib = _kernels()
+    # device memory for the frames' IDFT, for configs whose block cannot
+    # hold it (m·r² above ~7,000); none otherwise
+    floats = ctypes.c_longlong()
+    rc = lib.dsr_fb_synthesis_scratch(C, M, m, D, start, out_len, ctypes.byref(floats))
+    _raise_on(rc, "synthesis", M, m, r)
+    scratch = (torch.empty(floats.value, dtype=torch.float32, device=A.device)
+               if floats.value else None)
+    rc = lib.dsr_fb_synthesis(A.data_ptr(), gf.data_ptr(), y.data_ptr(),
+                              None if scratch is None else scratch.data_ptr(), C, T, M, m, D,
+                              start, out_len, stream())
     _raise_on(rc, "synthesis", M, m, r)
     launches["synthesis"] += 1
     return y
