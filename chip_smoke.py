@@ -52,7 +52,26 @@ Phases, each of which fails the run loudly:
      decode (WER <= 0.05), the 8-ch delay-and-sum path (analysis -> DS ->
      synthesis -> MFCC -> decode, WER <= 0.15, its utterances aligned
      through the kernel), and the phone task's bigram HCLG decode; trained
-     means and decoded words against the CPU plain path.
+     means and decoded words against the CPU plain path;
+  8. L, lattices: 4 in-domain sentences of about 500 frames on the V = 2000
+     graph, decoded with 4 alternates per token through the select
+     kernel's lattice mode; link posteriors sum to 1 per frame, the
+     lattice's 1-best equals the decode's words, oracle errors and
+     consensus against the reference words with their host seconds, and
+     one sentence's token and alt tables against the CPU plain path's;
+  9. MM, lattice MMI at config 1's width: `ebw_train` of the phone task's
+     GMMs over the 60 training utterances and its bigram HCLG, 4
+     iterations, a strictly increasing criterion; 5 utterances x 2
+     iterations against the CPU plain path; the lattice denominator with
+     exhaustive and pruned settings against the full-graph one;
+  10. SB, the staged buffer bank: bench.py's 8 buffers of 64 ch x 8 s
+     staged once on the card, every buffer by int and by device index
+     against the unstaged fused kernel, bitwise, and a serving loop over
+     the bank with no host readback.
+Phase 2 also holds the select kernel's lattice mode to its twin bitwise
+(U = 8 at the four pool shapes, nlat 1 / 3 / 4 / 8, and kcap 155 with nlat
+512) and the synthesis at M = 4096, m = 8, r = 4096 (m r = 32,768, through
+device memory) to its twin.
 The last two lines are the kernels' JSON record and the verdict
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -62,6 +81,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -133,10 +153,11 @@ def main() -> int:
     from dsr_tpu_torch.asr import lvcsr, phone_task, smallvocab
     from dsr_tpu_torch.asr import path as apath
     from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.decoder import lattice
     from dsr_tpu_torch.asr.decoder import wfst_decoder as wd
     from dsr_tpu_torch.asr.fsm import hclg, lm
     from dsr_tpu_torch.asr.fsm.packed import pack
-    from dsr_tpu_torch.asr.train import trainer
+    from dsr_tpu_torch.asr.train import mmi, trainer
     from dsr_tpu_torch.asr.decoder import split_decoder as sd
     from dsr_tpu_torch.asr.decoder import topk_decoder as tk
     from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
@@ -155,7 +176,7 @@ def main() -> int:
     from dsr_tpu_torch.ops.cuda import viterbi as cvit
     from dsr_tpu_torch.pipeline import DsrPipeline, StreamingRecognizer
     from dsr_tpu_torch.utils import corpus, design
-    from dsr_tpu_torch.utils.metrics import WerScorer
+    from dsr_tpu_torch.utils.metrics import WerScorer, edit_distance
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,9 +204,13 @@ def main() -> int:
             path, log, secs = fut.result()
             print(f"build {name}: {path.name} in {secs:.1f} s "
                   f"({build.SOURCES[name][1]}, started with the others)")
+            kernel_name = ""
             for line in log.splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    print(f"    {line.strip()}")
+                if "Compiling entry function" in line:   # the kernel (and its template flags)
+                    found = re.search(r"\d+([a-z_]+_kernel)(I(?:L[a-z]+\d+E)+)?", line)
+                    kernel_name = "".join(found.groups("")) if found else line.strip()
+                elif "registers" in line or "spill" in line or "smem" in line:
+                    print(f"    {kernel_name}: {line.strip()}")
 
     cfg = FilterbankConfig(M=256, m=4, r=2)
     cfg_d256 = FilterbankConfig(M=512, m=4, r=2)
@@ -203,12 +228,13 @@ def main() -> int:
     # ---- 2. kernels against their plain versions ---------------------------
     record = {}
 
-    def compare(name, label, kernel, plain, nbytes, flops, library=None, tol=TOL):
+    def compare(name, label, kernel, plain, nbytes, flops, library=None, tol=TOL, iters=20):
         out = kernel()
         ref = plain()
         torch.cuda.synchronize()
         err = rel_err(out, ref)
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        ms = cuda_ms(kernel, iters=iters, warmup=min(3, iters))
+        plain_ms = cuda_ms(plain, iters=iters, warmup=min(3, iters))
         lib_ms = cuda_ms(library) if library is not None else None
         b_ms, b_by = bound(nbytes, flops)
         print(f"{name:18s} {label:34s} rel err {err:.2e} (bound {tol:.0e})  kernel "
@@ -239,14 +265,17 @@ def main() -> int:
         if main:
             record["analysis"] = res
 
-    def synthesis_case(c, A, g, out_len, label, main):
+    def synthesis_case(c, A, g, out_len, label, main, iters=20):
         C, T, K = A.shape
         start = c.L - c.D
+        # the frames the output samples read: t_lo .. the last sample's frame
+        t_lo = max(0, start // c.D - c.L // c.D + 1)
+        rows = min(T - 1, (start + out_len - 1) // c.D) - t_lo + 1
         res = compare("synthesis", label,
                       lambda: cfb.synthesis(A, g, c.M, c.m, c.r, start, out_len),
                       lambda: cfb.synthesis_plain(A, g, c.M, c.r, start, out_len),
-                      8 * C * T * K + 4 * c.L + 4 * C * out_len,
-                      C * (T * rfft_flops(c.M) + out_len * 2 * (c.L // c.D)))
+                      8 * C * rows * K + 4 * c.L + 4 * C * out_len,
+                      C * (rows * rfft_flops(c.M) + out_len * 2 * (c.L // c.D)), iters=iters)
         if main:
             record["synthesis"] = res
 
@@ -277,6 +306,18 @@ def main() -> int:
     A_d256 = cfb.analysis_plain(x_d256, hf2, cfg_d256.M, cfg_d256.r,
                                 fb.num_frames(x_d256.shape[-1], cfg_d256))
     synthesis_case(cfg_d256, A_d256, gf2, x_d256.shape[-1], "8 ch x 1 s M=512 (D=256)", False)
+    # m r = 32,768: above what a slab block holds (the synthesis raised
+    # there before); every frame's IDFT through device memory, then the
+    # overlap-add; random prototypes, a 2,000-sample signal
+    c4k = FilterbankConfig(M=4096, m=8, r=4096)
+    h4k, g4k = (torch.as_tensor(rng.standard_normal(c4k.L).astype(np.float32) / 16, device=dev)
+                for _ in range(2))
+    x4k = signal(1, 2000 / SR)
+    A4k = cfb.analysis_plain(x4k, h4k, c4k.M, c4k.r, fb.num_frames(2000, c4k))
+    synthesis_case(c4k, A4k, g4k, 2000, "1 ch x 2,000 samples M=4096 m=8 r=4096", False,
+                   iters=3)
+    del A4k
+    torch.cuda.empty_cache()
 
     # every kernel at every shipped config and a D = 256 one (no timing)
     for c, h, g in [(FilterbankConfig(M=M, m=m, r=r, joint_iters=j), None, None)
@@ -369,6 +410,60 @@ def main() -> int:
             if N == 2304 and beam == 40.0:   # the split decoder's pool, bench.py's path
                 record["select"] = dict(max_abs_err=err, rel_err=0.0, ms=ms, plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # the select kernel's lattice mode against its twin, bitwise (the 1-best
+    # triple also against the 1-best kernel): the pools above, nlat 1, 3, 4
+    # and 8, beams 40 and 1e9; and kcap 155 with nlat 512, more alternates
+    # than any run holds (tests/test_adapt_mmi_lattice.py's exhaustive case)
+    lat_cases = [(N, kcap, nlat, beam) for N, kcap in ((2304, 256), (12032, 256),
+                                                        (134656, 512), (269312, 1024))
+                 for nlat in (1, 3, 4, 8) for beam in (40.0, 1e9)] + [(4805, 155, 512, 1e9)]
+    n_alt, pool_ms = 0, []
+    for N, kcap, nlat, beam in lat_cases:
+        args = select_case(N, kcap, beam, 7 * N + nlat + int(beam))
+        out = csel.recombine_topk(*args, kcap, nlat)
+        ref = csel.recombine_topk_plain(*args, kcap, nlat)
+        one = csel.recombine_topk(*args, kcap)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref))
+                and all(torch.equal(bits(o), bits(r)) for o, r in zip(out[:3], one)))
+        check(same, f"select lattice mode N={N} kcap={kcap} nlat={nlat} beam={beam}: not "
+                    "bitwise equal to its twin and the 1-best kernel")
+        n_alt += int((out[4][..., 1:] >= 0).sum())
+        if nlat == 4 and beam == 40.0:   # each pool's time, against the 1-best mode's
+            pool_ms.append(f"N={N} kcap={kcap}: lattice " + " / ".join(
+                f"{cuda_ms(fn, iters=3, warmup=1):.4f}" for fn in (
+                    lambda: csel.recombine_topk(*args, kcap, nlat),
+                    lambda: csel.recombine_topk(*args, kcap),
+                    lambda: csel.recombine_topk_plain(*args, kcap, nlat))) + " ms")
+    print(f"select lattice mode nlat 4 beam 40, U=8, kernel / the 1-best kernel / plain: "
+          + "; ".join(pool_ms) + f"  [{smi}]")
+    print(f"select lattice mode: {len(lat_cases)} cases (U=8; N = 2,304 / 12,032 / 134,656 / "
+          f"269,312 at kcap 256 / 256 / 512 / 1,024, nlat 1 / 3 / 4 / 8, beams 40 and 1e9; N = "
+          f"4,805 kcap 155 nlat 512) bitwise equal to the twin, 1-best triple equal to the "
+          f"1-best kernel's; {n_alt} live alternates beyond column 0")
+    N, kcap, nlat = 12032, 256, 4        # the lattice decode's pool (dense, a_max 47)
+    args = select_case(N, kcap, 40.0, 12032 + 4)
+    out = csel.recombine_topk(*args, kcap, nlat)
+    ref = csel.recombine_topk_plain(*args, kcap, nlat)
+    torch.cuda.synchronize()
+    check(all(torch.equal(bits(o), bits(r)) for o, r in zip(out, ref)),
+          "select lattice mode at the timed shape: not bitwise equal to its twin")
+    err = max(float((o.double() - r.double()).abs().max()) for o, r in zip(out, ref))
+    ms = cuda_ms(lambda: csel.recombine_topk(*args, kcap, nlat))
+    ms_one = cuda_ms(lambda: csel.recombine_topk(*args, kcap))
+    plain_ms = cuda_ms(lambda: csel.recombine_topk_plain(*args, kcap, nlat))
+    # 12 bytes in per candidate; out per slot its dst and nlat (score, arc)
+    # pairs, column 0 the winner (the Pallas lattice mode's outputs; the
+    # kernel also writes the 1-best score and arc, 8 bytes a slot more);
+    # two comparisons per candidate
+    b_ms, b_by = bound(8 * (12 * N + (4 + 8 * nlat) * kcap), 2 * 8 * N)
+    print(f"select lattice U=8 N={N} kcap={kcap} nlat={nlat} beam=40: bitwise equal to the twin "
+          f"(max |diff| {err:g} over the five outputs); kernel {ms:.4f} ms, the 1-best mode on "
+          f"the same candidates {ms_one:.4f} ms; plain {plain_ms:.4f} ms  library n/a  bound "
+          f"{b_ms:.5f} ms ({b_by})  [{smi}]")
+    record["select_lattice"] = dict(max_abs_err=err, rel_err=0.0, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # the GSC kernel against its twin: U utterances of 8 ch x 1000 frames x
     # 129 bins, each with the DS weights and blocking matrix of its own source
@@ -917,7 +1012,7 @@ def main() -> int:
                   "device time)")
     # the host's share: the traceback alone, from a finished token pass
     states0, scores0 = tk.start_tokens(sg, U, kcap)
-    sf, scf, ts, ta, _, _ = tk.token_pass(
+    sf, scf, ts, ta, _, _, _ = tk.token_pass(
         lambda s_, sc_, l_: sd.candidates(sg, s_, sc_, l_, eg), ll, lens, states0, scores0,
         beam, kcap)
     torch.cuda.synchronize()
@@ -1203,6 +1298,165 @@ def main() -> int:
     check(hyps_p == hyps_p_cpu, "config 1 phone task: decode words, card vs CPU")
     check(wer_pc.wer <= 0.5, "config 1 phone task: clean decode recognises the corpus")
 
+    # ---- 8. L: lattices on the V = 2000 graph -------------------------------
+    # 4 in-domain sentences of at least 11 words (about 500 frames each) from
+    # the bench task's own text generator, rendered for its synthetic AM
+    cfg2k = lvcsr.LvcsrConfig()
+    rng2k = np.random.default_rng(cfg2k.seed)
+    lex2k = lvcsr.make_lexicon(cfg2k.vocab_size, rng2k)
+    text2k = lvcsr.make_text(sorted(lex2k), cfg2k.n_tokens, cfg2k.branching, rng2k)
+    sents = [s_ for s_ in text2k if len(s_) >= 11][:4]
+    am2k = lvcsr.synthetic_am(task).to(dev)
+    rs8 = np.random.default_rng(8)
+    lls = [gmm.loglik(am2k, torch.as_tensor(lvcsr.synthesize_utterance(task, s_, rs8), device=dev))
+           for s_ in sents]
+    frames_l = [int(l_.shape[0]) for l_ in lls]
+    tk.decode_with_tokens(tg, lls[0][:20], kcap=256, beam=40.0, nlat=4)    # warm-up
+    lat_outs, t_ldec = timed(lambda: counted(
+        "L: lattice decode (V=2000, 4 sentences, kcap 256, beam 40, nlat 4)",
+        lambda: [tk.decode_with_tokens(tg, l_, kcap=256, beam=40.0, nlat=4) for l_ in lls],
+        {"select_lattice": sum(frames_l)}))
+    host_s = dict.fromkeys(("from_topk", "forward_backward", "one_best", "oracle", "consensus"),
+                           0.0)
+    errs_l = []
+    for s_, out in zip(sents, lat_outs):
+        olabs, _, ts_, ta_, tsc_, aa, asc = out
+        t0 = time.perf_counter()
+        lt = lattice.from_topk(ts_, ta_, tsc_, tg, aa, asc)
+        t1 = time.perf_counter()
+        _, _, logZ, post = lt.forward_backward()
+        t2 = time.perf_counter()
+        best, _ = lt.one_best()
+        t3 = time.perf_counter()
+        ref_ids = [task.words[w] for w in s_]
+        oracle = lt.oracle_errors(ref_ids)
+        t4 = time.perf_counter()
+        cons = lattice.consensus(lt, min_post=0.01, max_links=4096)
+        t5 = time.perf_counter()
+        for k_, a_, b_ in zip(host_s, (t0, t1, t2, t3, t4), (t1, t2, t3, t4, t5)):
+            host_s[k_] += b_ - a_
+        sums = post.sum(axis=(1, 2))
+        words_dec = [int(w) for w in olabs if w]
+        sub, dele, ins, _ = edit_distance(ref_ids, cons)
+        errs_l.append((oracle, sub + dele + ins, sum(edit_distance(ref_ids, words_dec)[:3])))
+        check(bool(np.isfinite(logZ)) and float(np.abs(sums - 1.0).max()) <= 1e-3,
+              f"L: link posteriors sum to 1 per frame (max off {np.abs(sums - 1).max():.2e})")
+        check(best == words_dec, "L: the lattice's 1-best equals the decode's words")
+        check(oracle <= errs_l[-1][2], "L: the oracle is no worse than the 1-best")
+    print(f"L: lattice decode of {len(sents)} sentences ({frames_l} frames, "
+          f"{[len(s_) for s_ in sents]} words): {t_ldec:.3f} s on the host clock = "
+          f"{sum(frames_l) / 125.0 / t_ldec:.1f} audio-s/s, {t_ldec / sum(frames_l) * 1e3:.3f} ms "
+          f"per frame; select lattice kernel {record['select_lattice']['ms']:.4f} ms at U=8 (U=1 "
+          f"here); errors per sentence (oracle, consensus, 1-best) {errs_l}; host seconds for all "
+          f"4: " + ", ".join(f"{k_} {v_:.3f}" for k_, v_ in host_s.items()) + f"  [{smi}]")
+    # one sentence's tables, card against the CPU plain path, same log-likelihoods
+    out_cpu = tk.decode_with_tokens(cpu_graphs["dense"], lls[0].cpu(), kcap=256, beam=40.0,
+                                    nlat=4)
+    same_l = all(torch.equal(bits(a_.cpu()), bits(b_)) for a_, b_ in zip(lat_outs[0][2:],
+                                                                          out_cpu[2:]))
+    print(f"L: sentence 0 token and alt tables card vs CPU plain path bitwise equal {same_l}; "
+          f"words equal {torch.equal(lat_outs[0][0], out_cpu[0])}")
+    check(same_l and torch.equal(lat_outs[0][0], out_cpu[0]),
+          "L: the card's lattice tables differ from the CPU plain path's")
+
+    # ---- 9. MM: lattice MMI at config 1's width -------------------------------
+    # the phone task (full vocabulary) trained in phase 7, its bigram HCLG
+    # (tools/exp_mmi.py's graph), the 60 training utterances
+    S1 = pg1.num_states
+    (p_mmi, hist), t_ebw = timed(lambda: counted(
+        "MM: ebw_train (60 utterances, 4 iterations)",
+        lambda: mmi.ebw_train(ptask, pparams, graph1, feats1, words1, iters=4),
+        {"viterbi": 5 * len(feats1)}))
+    hist = np.asarray(hist)
+    check(bool(np.isfinite(hist).all() and (np.diff(hist) > 0).all()),
+          f"MM: EBW criterion not strictly increasing: {hist}")
+    p5, h5 = mmi.ebw_train(ptask, pparams, graph1, feats1[:5], words1[:5], iters=2)
+    p5c, h5c = mmi.ebw_train(ptask, host_copy(pparams), wd.to_device(pg1, device="cpu"),
+                             feats1[:5], words1[:5], iters=2)
+    e_h = float(np.max(np.abs(np.asarray(h5) - h5c) / np.abs(h5c)))
+    e_p = max(float(((getattr(p5, n).cpu() - getattr(p5c, n)).abs()
+                     / (getattr(p5c, n).abs() + 1)).max())
+              for n in ("means", "variances", "logweights"))
+    # where the time goes: one pass's alignments and full-graph denominators
+    # (one padded batch of the 60 utterances, as ebw_train runs them)
+    _, t_al = timed(lambda: [apath.force_align(ptask, pparams, f, w)
+                             for f, w in zip(feats1, words1)])
+    fpad1 = torch.nn.utils.rnn.pad_sequence(
+        [torch.as_tensor(f, device=dev) for f in feats1], batch_first=True)
+    _, t_den = timed(lambda: mmi.denominator_gamma(
+        graph1, gmm.loglik(pparams, fpad1), return_total=True, lengths=[len(f) for f in feats1]))
+    print(f"MM: ebw_train 60 utterances ({sum(len(f) for f in feats1)} frames), HCLG {S1} "
+          f"states / {pg1.num_arcs} arcs, 4 iterations: {t_ebw:.3f} s on the host clock "
+          f"[{smi}]; criterion {[round(float(h), 2) for h in hist]}; per pass: force_align "
+          f"{t_al:.3f} s, full-graph denominators {t_den:.3f} s; 5 utterances x 2 iterations "
+          f"card vs CPU plain path: criterion rel err {e_h:.2e}, parameters max |a - b| / "
+          f"(|b| + 1) {e_p:.2e} (bound 5e-4)")
+    check(e_h <= 5e-4 and e_p <= 5e-4, "MM: the card's EBW agrees with the CPU plain path")
+    tg1 = tk.build_token_graph(pg1, device=dev)
+    ll_1, ll_4 = (gmm.loglik(pparams, torch.as_tensor(feats1[i], device=dev)) for i in (1, 4))
+
+    def lattice_denominators():
+        return (mmi.denominator_gamma_lattice(tg1, ll_1, kcap=S1, beam=1e9,
+                                              nlat=min(S1 * tg1.a_max, 512)),
+                mmi.denominator_gamma_lattice(tg1, ll_4, kcap=24, beam=30.0, nlat=6))
+
+    (g_ex, g_pr), t_lden = timed(lambda: counted(
+        "MM: lattice denominators (exhaustive, pruned)", lattice_denominators,
+        {"select_lattice": ll_1.shape[0] + ll_4.shape[0]}))
+    g_d1, g_d4 = (mmi.denominator_gamma(graph1, l_).cpu().numpy() for l_ in (ll_1, ll_4))
+    d_ex, d_pr = float(np.abs(g_ex - g_d1).max()), float(np.abs(g_pr - g_d4).mean())
+    print(f"MM: lattice denominator vs full graph: exhaustive (kcap {S1}, nlat "
+          f"{min(S1 * tg1.a_max, 512)}) max |diff| {d_ex:.2e} (gate 2e-3), pruned (kcap 24, beam "
+          f"30, nlat 6) mean |diff| {d_pr:.2e} (gate 0.02); {t_lden:.3f} s for both")
+    check(float(np.abs(g_ex.sum(axis=1) - 1).max()) <= 1e-3 and d_ex < 2e-3,
+          "MM: exhaustive lattice denominator")
+    check(float(np.abs(g_pr.sum(axis=1) - 1).max()) <= 1e-2 and d_pr < 0.02,
+          "MM: pruned lattice denominator")
+
+    # ---- 10. SB: the staged buffer bank ---------------------------------------
+    # bench.py's bank: 8 buffers of 64 ch x 8 s, staged once; the MVDR weights
+    # of phase 2; the buffer index from the host and from device memory
+    NBUF = 8
+    xp_bank = fb.stage_for_beamform(
+        np.random.default_rng(10).standard_normal((NBUF, 64, S64)).astype(np.float32))
+    idx_dev = torch.arange(NBUF, dtype=torch.int32, device=dev)
+    for i in range(NBUF):
+        ref = fb.analysis_beamform(xp_bank[i], w64, cfg, hf_t)
+        check(torch.equal(fb.analysis_beamform_staged(xp_bank, i, w64, cfg, S64, hf_t), ref)
+              and torch.equal(fb.analysis_beamform_staged(xp_bank, idx_dev[i], w64, cfg, S64,
+                                                          hf_t), ref),
+              f"SB: buffer {i} differs from the unstaged fused kernel")
+    bad = fb.analysis_beamform_staged(xp_bank, torch.tensor(NBUF, dtype=torch.int32, device=dev),
+                                      w64, cfg, S64, hf_t)
+    check(bool(torch.isnan(bad).all()), "SB: an out-of-range device index gives NaN")
+
+    def serve_bank(n):
+        """n requests over the bank: fused analysis + beamform of buffer
+        i % 8 (index read on the card), then the synthesis."""
+        return [fb.synthesis(fb.analysis_beamform_staged(xp_bank, idx_dev[i % NBUF], w64, cfg,
+                                                         S64, hf_t), cfg, S64, gf_t, delay)
+                for i in range(n)]
+
+    ys_bank = counted("SB: serving loop over the staged bank (16 requests)",
+                      lambda: serve_bank(2 * NBUF),
+                      {"analysis_beamform_staged": 2 * NBUF, "synthesis": 2 * NBUF})
+    check(all(bool(torch.isfinite(y_).all()) for y_ in ys_bank), "SB: finite outputs")
+    bank_ms = cuda_ms(lambda: serve_bank(NBUF), iters=3) / NBUF
+    fused_ms = cuda_ms(lambda: [fb.analysis_beamform_staged(xp_bank, idx_dev[i], w64, cfg, S64,
+                                                            hf_t) for i in range(NBUF)],
+                       iters=3) / NBUF
+    print(f"SB: bank of {NBUF} x 64 ch x 8 s ({xp_bank.numel() * 4 / 1e6:.0f} MB) staged once; "
+          f"every buffer by int and by device index bitwise equal to the unstaged kernel; "
+          f"serving loop (no host readback) {bank_ms:.3f} ms per request = "
+          f"{8.0 / (bank_ms / 1e3):.1f} audio-s/s, the fused kernel alone {fused_ms:.3f} ms = "
+          f"{8.0 / (fused_ms / 1e3):.1f} audio-s/s [{smi}]")
+    record["analysis_beamform_staged"] = compare(
+        "analysis_beamform_staged", "bank 8 x 64 ch x 8 s, device index",
+        lambda: fb.analysis_beamform_staged(xp_bank, idx_dev[3], w64, cfg, S64, hf_t),
+        lambda: cfb.analysis_beamform_plain(xp_bank[3], hf_t, w64, cfg.M, cfg.r, T64),
+        4 * (64 * S64 + cfg.L) + 8 * K * 64 + 8 * T64 * K,
+        64 * T64 * (2 * cfg.L + rfft_flops(cfg.M) + 8 * K))
+
     print(f"main path launches, all paths: {counts}")
 
     kernels = []
@@ -1212,10 +1466,13 @@ def main() -> int:
                 "select": "dsr_tpu/ops/pallas/select.py:221",
                 "gsc": "dsr_tpu/ops/pallas/gsc.py:27",
                 "steering": "dsr_tpu/ops/pallas/steering.py:34",
-                "viterbi": "dsr_tpu/ops/pallas/viterbi.py:35"}
+                "viterbi": "dsr_tpu/ops/pallas/viterbi.py:35",
+                "select_lattice": "dsr_tpu/ops/pallas/select.py:277",
+                "analysis_beamform_staged": "dsr_tpu/ops/pallas/filterbank.py:338"}
     sources = {"analysis": "filterbank.cu", "analysis_beamform": "filterbank.cu",
                "synthesis": "filterbank.cu", "select": "select.cu", "gsc": "gsc.cu",
-               "steering": "steering.cu", "viterbi": "viterbi.cu"}
+               "steering": "steering.cu", "viterbi": "viterbi.cu", "select_lattice": "select.cu",
+               "analysis_beamform_staged": "filterbank.cu"}
     for name, source in sources.items():
         r = record[name]
         kernels.append({"name": name, "route": "cuda",

@@ -157,8 +157,8 @@ def decode_batch_split(graph: SplitTokenGraph, loglik, lengths, kcap: int = 256,
                          np.int64).reshape(U)
     kcap = min(kcap, graph.num_states)
     states, scores = start_tokens(graph, U, kcap)
-    sf, scf, ts, ta, _, extras = token_pass(partial(candidates, graph, eg=eg), ll, lengths,
-                                            states, scores, beam, kcap)
+    sf, scf, ts, ta, _, extras, _ = token_pass(partial(candidates, graph, eg=eg), ll,
+                                               lengths, states, scores, beam, kcap)
     # a frame counts as overflowed only while the utterance is running
     ovf = torch.stack([x[0] for x in extras]).cpu().numpy()          # (T, U)
     ovf_frames = (ovf & (np.arange(T)[:, None] < lengths[None, :])).sum(axis=0)

@@ -19,8 +19,13 @@ The utterance axis of `decode_batch` is written out (U rows per call), and
 the frame loop is a Python loop.  The selection is always exact, so the
 `return_spill` flags are all False.  Dropped TPU workarounds: the one-hot
 MXU lookups (`_split_mm`), the chunk-length buckets, and the
-`select_mode` / `select_q` / `approx_topk` knobs.  Lattice mode (`nlat`)
-waits for `asr/decoder/lattice.py` (ROADMAP).
+`select_mode` / `select_q` / `approx_topk` knobs.
+
+Lattice mode (`nlat > 0`): the select's lattice mode also gives each
+surviving token its state's top `nlat` incoming arcs and their path scores
+(column 0 the winner), the (T, K, nlat) alt tables that
+`asr/decoder/lattice.from_topk` turns into a true lattice; `nlat` is cut
+to a_max·kcap as the reference cuts it.
 
 Outputs: token tables stay on the decoder's device; the traceback's
 olabels and scores are CPU tensors.
@@ -39,8 +44,6 @@ from dsr_tpu_torch.ops.cuda.select import recombine_topk
 from dsr_tpu_torch.utils.device import resolve
 
 NEG = -1e30
-_LATTICE = ("nlat > 0 (lattice mode) is not ported yet: it comes with "
-            "asr/decoder/lattice.py (ROADMAP, Queue 1: lattice mode)")
 
 
 class TokenGraph(NamedTuple):
@@ -93,14 +96,16 @@ def candidates(graph: TokenGraph, states, scores, ll):
     return cand.reshape(U, -1), graph.dst[states].reshape(U, -1), arcs.reshape(U, -1)
 
 
-def token_pass(expand, ll, lengths, states, scores, beam, kcap: int):
+def token_pass(expand, ll, lengths, states, scores, beam, kcap: int, nlat: int = 0):
     """The frame loop shared by the dense and degree-split decoders.
 
     expand(states, scores, ll_t) → (cand, dst, arcs[, extra]) gives the
     (U, N) candidates of one frame; ll (U, T, P); lengths: host ints (U,),
     frames t >= length pass the carry through with arc -1.  Returns
     (states, scores) after the last frame, the (T, U, K) token tables
-    (states, arcs, scores) and the per-frame extras (a list, one per frame).
+    (states, arcs, scores), the per-frame extras (a list, one per frame)
+    and, when nlat > 0, the (T, U, K, nlat) alt tables (arcs, scores), else
+    None; frames t >= length hold arc -1 and score NEG there.
     """
     U, T = ll.shape[:2]
     dev = ll.device
@@ -109,20 +114,28 @@ def token_pass(expand, ll, lengths, states, scores, beam, kcap: int):
     tok_states = torch.empty((T, U, kcap), dtype=torch.int32, device=dev)
     tok_arcs = torch.empty((T, U, kcap), dtype=torch.int32, device=dev)
     tok_scores = torch.empty((T, U, kcap), dtype=torch.float32, device=dev)
+    alts = None
+    if nlat:
+        alts = (torch.empty((T, U, kcap, nlat), dtype=torch.int32, device=dev),
+                torch.empty((T, U, kcap, nlat), dtype=torch.float32, device=dev))
     extras = []
     for t in range(T):
         cand, dst, arcs, *extra = expand(states, scores, ll[:, t])
         extras.append(extra)
-        new_scores, new_states, new_arcs = recombine_topk(cand, dst, arcs, beam_t, kcap)
+        new_scores, new_states, new_arcs, *alt = recombine_topk(cand, dst, arcs, beam_t, kcap,
+                                                                nlat)
         # the select writes dead slots as (score <= NEG/2, dst 0, arc -1)
         if t >= lengths.min():   # some utterance has ended: carry passes through
             keep = torch.as_tensor(t < lengths, device=dev)[:, None]
             new_states = torch.where(keep, new_states, states)
             new_scores = torch.where(keep, new_scores, scores)
             new_arcs = torch.where(keep, new_arcs, -1)
+            alt = [torch.where(keep[..., None], a, fill) for a, fill in zip(alt, (NEG, -1))]
         states, scores = new_states, new_scores
         tok_states[t], tok_arcs[t], tok_scores[t] = states, new_arcs, scores
-    return states, scores, tok_states, tok_arcs, tok_scores, extras
+        if nlat:   # the select gives (scores, arcs); the tables are (arcs, scores)
+            alts[1][t], alts[0][t] = alt
+    return states, scores, tok_states, tok_arcs, tok_scores, extras, alts
 
 
 def _best_final(states_f: np.ndarray, scores_f: np.ndarray, final_f: np.ndarray):
@@ -208,18 +221,21 @@ def decode_chunk(graph: TokenGraph, loglik, carry, kcap: int = 256, beam: float 
 
     carry = (states (K,), scores (K,)) from `stream_start` or the previous
     chunk.  Returns (new_carry, (tok_states, tok_arcs, tok_scores
-    [, spill])), each (T, K) ((T,) for spill, all False): accumulate the
-    token tables and run `traceback` at the utterance's end; the result is
+    [, alt_arcs, alt_scores][, spill])), each (T, K) ((T, K, nlat) for the
+    alt tables when nlat > 0, (T,) for spill, all False): accumulate the
+    tables and run `traceback` at the utterance's end; the result is
     identical to the whole-utterance decode (the carry is the decoder's
-    only state)."""
-    if nlat:
-        raise NotImplementedError(_LATTICE)
+    only state), the alt tables included."""
     kcap = min(kcap, graph.num_states)
+    nlat = min(nlat, graph.a_max * kcap)
     ll = _logliks(graph, loglik)
     T = ll.shape[0]
-    states, scores, ts, ta, tsc, _ = token_pass(partial(candidates, graph), ll[None], [T],
-                                                carry[0][None], carry[1][None], beam, kcap)
+    states, scores, ts, ta, tsc, _, alts = token_pass(
+        partial(candidates, graph), ll[None], [T], carry[0][None], carry[1][None], beam, kcap,
+        nlat)
     outs = (ts[:, 0], ta[:, 0], tsc[:, 0])
+    if nlat:
+        outs = outs + (alts[0][:, 0], alts[1][:, 0])
     if return_spill:
         outs = outs + (torch.zeros(T, dtype=torch.bool, device=ll.device),)
     return (states[0], scores[0]), outs
@@ -238,18 +254,22 @@ def decode_with_tokens(graph: TokenGraph, loglik, kcap: int = 256, beam: float =
                        length=None, nlat: int = 0, return_spill: bool = False):
     """Full decode of loglik (T, P) returning the token tables:
     (olabels (T,), score, tok_states (T, K), tok_arcs (T, K),
-    tok_scores (T, K)) [+ spill (T,), all False, when return_spill]."""
-    if nlat:
-        raise NotImplementedError(_LATTICE)
+    tok_scores (T, K)) [+ alt_arcs (T, K, nlat), alt_scores (T, K, nlat)
+    when nlat > 0: each surviving token's top-nlat incoming arcs with their
+    path scores, the lattice's links] [+ spill (T,), all False, when
+    return_spill, always last]."""
     ll = _logliks(graph, loglik)
     T = ll.shape[0]
     length = T if length is None else int(length)
     kcap = min(kcap, graph.num_states)
+    nlat = min(nlat, graph.a_max * kcap)
     states, scores = start_tokens(graph, 1, kcap)
-    sf, scf, ts, ta, tsc, _ = token_pass(partial(candidates, graph), ll[None], [length],
-                                         states, scores, beam, kcap)
+    sf, scf, ts, ta, tsc, _, alts = token_pass(partial(candidates, graph), ll[None], [length],
+                                               states, scores, beam, kcap, nlat)
     olabs, score = _traceback(graph, ts, ta, sf, scf, [length])
     out = (olabs[0], score[0], ts[:, 0], ta[:, 0], tsc[:, 0])
+    if nlat:
+        out = out + (alts[0][:, 0], alts[1][:, 0])
     if return_spill:
         out = out + (torch.zeros(T, dtype=torch.bool, device=ll.device),)
     return out
@@ -272,8 +292,8 @@ def decode_batch(graph: TokenGraph, loglik, lengths, kcap: int = 256, beam: floa
                          np.int64).reshape(U)
     kcap = min(kcap, graph.num_states)
     states, scores = start_tokens(graph, U, kcap)
-    sf, scf, ts, ta, _, _ = token_pass(partial(candidates, graph), ll, lengths, states, scores,
-                                       beam, kcap)
+    sf, scf, ts, ta, _, _, _ = token_pass(partial(candidates, graph), ll, lengths, states,
+                                          scores, beam, kcap)
     olabs, best = _traceback(graph, ts, ta, sf, scf, lengths)
     if return_spill:
         return olabs, best, torch.zeros((U, T), dtype=torch.bool, device=ll.device)

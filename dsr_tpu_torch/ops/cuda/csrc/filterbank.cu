@@ -2,10 +2,7 @@
 // analysis + fixed-weight beamform, and synthesis.  Plain C interface,
 // loaded with ctypes by dsr_tpu_torch/ops/cuda/filterbank.py; each entry
 // point launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() (or kNoFit: never for the analysis; for the synthesis
-// only when one bin's spectra of the mr frames behind one output sample
-// and its DFT columns, 2 m r + 16 r + 4 floats, exceed a block's shared
-// memory: m r above ~29,000).
+// cudaGetLastError() (or kNoFit: never for a valid config).
 //
 // Conventions (the same as dsr_tpu/ops/filterbank.py): M subbands, prototype
 // length L = m*M, hop D = M/r, K = M/2+1 bins, front pad P = L-D.  Frame t
@@ -21,8 +18,18 @@
 //
 // Replaces (dsr_tpu/ops/pallas/filterbank.py):
 //   analysis           <- _analysis_kernel_v5 and _analysis_kernel
-//   analysis_beamform  <- _analysis_bf_kernel
+//   analysis_beamform  <- _analysis_bf_kernel, unstaged and over the staged
+//                         buffer bank (stage_for_beamform / _analysis_bf_staged)
 //   synthesis          <- _synthesis_kernel_v5 and _synthesis_kernel
+//
+// The staged bank: the TPU kernel read a (B, C*rows, 128) bank of padded
+// frames and took the buffer's index by scalar prefetch, so one compiled
+// kernel served a whole serving loop with no host work per call.  Here the
+// bank is the (B, C, S) signals as they are (the kernels need no padded
+// frame grid), and the fused kernel's staged instantiation reads the index
+// from device memory itself (or takes it as an argument): a loop over the
+// bank needs no host readback.  An index outside [0, B) read from device
+// memory makes the kernel write NaN (it cannot raise).
 //
 // What bounds them on this card: the DFTs are evaluated directly, O(M) per
 // bin, as the TPU kernels did with matmuls.  At M = 256 that is about 2M
@@ -62,11 +69,18 @@
 // "slab" kernels below: the analysis takes its DFT sum over p in slabs of
 // pairs and reads the signal and prototype from device memory; the
 // synthesis takes its IDFT sum over bins in slabs, with fewer residues per
-// block when needed, and keeps the frames' IDFT in device memory (caller's
-// scratch) when even that does not fit; without room for the twiddle
-// table (M above ~20,000), each DFT entry is computed directly, with the
-// same sincospi, so the same value.  The main path's configs never reach
-// them, so their kernels keep the simpler layout and its register budget.
+// block when needed; without room for the twiddle table (M above
+// ~20,000), each DFT entry is computed directly, with the same sincospi,
+// so the same value.  The main path's configs never reach them, so their
+// kernels keep the simpler layout and its register budget.
+// A synthesis whose slab block cannot hold the frames' IDFT (m r^2 above
+// ~7,000, e.g. M = 256 m = 8 r = 32) takes two kernels through device
+// memory: every frame's IDFT at all M indices into the caller's scratch,
+// then the overlap-add as a gather, one warp per output sample.  (A slab
+// block holds the IDFT of the m r frames behind its samples, so its blocks
+// recompute each frame's IDFT about m r / (its tile's frames) times, and
+// holding that IDFT in device memory would need, at M = 4096 m = 8 r =
+// 4096, 4 GB per block.)
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -327,13 +341,37 @@ analysis_kernel(const float* __restrict__ x, const float* __restrict__ hf,
     oc[static_cast<long long>(t0 + tid) * K + M / 2] = make_float2(ny[0], 0.f);
 }
 
+// The staged bank's buffer: x (B, C, S) at index *idx (device memory) or
+// idx_host; out of range, buffer 0 is read and *bad set.
+struct Staged {
+  const int* idx;
+  int idx_host, nbuf;
+  long long stride;
+};
+
+__device__ __forceinline__ const float* staged_buffer(const float* x, const Staged& st,
+                                                      bool* bad) {
+  const int b = st.idx ? __ldg(st.idx) : st.idx_host;
+  *bad = b < 0 || b >= st.nbuf;
+  return x + (*bad ? 0 : static_cast<long long>(b) * st.stride);
+}
+
+__device__ __forceinline__ void poison(float* a, int n) {
+  for (int j = 0; j < n; ++j) a[j] = __int_as_float(0x7fffffff);
+}
+
 // Fused analysis + beamform: y[t, k] = sum_c conj(w[k, c]) A_c[t, k].
 // grid (frame tiles, 1, bin groups).  w: (K, C) complex, y: (T, K) complex.
+// kStaged: x is the staged bank and `st` names the buffer; otherwise `st`
+// is not read and the code is the unstaged kernel's.
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreadsA)
 analysis_beamform_kernel(const float* __restrict__ x, const float* __restrict__ hf,
                          const float2* __restrict__ w, float2* __restrict__ y,
-                         int C, int S, int T, int M, int m, int D, int kpb) {
+                         int C, int S, int T, int M, int m, int D, int kpb, Staged st) {
   extern __shared__ __align__(16) float smem[];
+  bool bad = false;
+  if constexpr (kStaged) x = staged_buffer(x, st, &bad);
   const int K = M / 2 + 1, FS = analysis_fs(kpb);
   const int L = m * M, P = L - D, W = (kTF - 1) * D + L;
   float* F = smem;
@@ -385,6 +423,12 @@ analysis_beamform_kernel(const float* __restrict__ x, const float* __restrict__ 
     }
   }
   reduce_groups(smem, acc, ny, 2, nyq);
+  if constexpr (kStaged) {
+    if (bad) {
+      poison(acc, kNA);
+      poison(ny, 2);
+    }
+  }
 
   if (ps == 0 && active) {
 #pragma unroll
@@ -758,12 +802,14 @@ analysis_slab_kernel(const float* __restrict__ x, const float* __restrict__ hf,
 // analysis_beamform_kernel in slabs: the slabs are the outer loop and the
 // channels the inner one (the sum is linear in both).  grid (frame tiles,
 // 1, bin groups).
-template <bool kTable>
+template <bool kTable, bool kStaged>
 __global__ void __launch_bounds__(kThreadsA)
 analysis_beamform_slab_kernel(const float* __restrict__ x, const float* __restrict__ hf,
                               const float2* __restrict__ w, float2* __restrict__ y, int C,
-                              int S, int T, int M, int m, int D, SlabLayout lay) {
+                              int S, int T, int M, int m, int D, SlabLayout lay, Staged st) {
   extern __shared__ __align__(16) float smem[];
+  bool bad = false;
+  if constexpr (kStaged) x = staged_buffer(x, st, &bad);
   SlabBlock blk(smem, lay, M, m, D);
   const int K = M / 2 + 1;
   const int tid = threadIdx.x, ps = tid / kTile, r = tid % kTile;
@@ -809,6 +855,12 @@ analysis_beamform_slab_kernel(const float* __restrict__ x, const float* __restri
     }
   }
   reduce_groups(smem, acc, ny, 2, blk.nyq);
+  if constexpr (kStaged) {
+    if (bad) {
+      poison(acc, kNA);
+      poison(ny, 2);
+    }
+  }
   blk.store(y, acc, T, bo, fp, ps == 0 && active, ny[0], ny[1]);
 }
 
@@ -817,16 +869,14 @@ analysis_beamform_slab_kernel(const float* __restrict__ x, const float* __restri
 // block (a power of two, 8 to kDS).  The layout, in floats of shared memory:
 //   Fs  (KS, 2 NQ)  [cos, sin] of 2 pi n k / M for the slab's bins
 //   AsT (KS, AS)    the slab's irfft-scaled spectra, [re, im] per frame
-//   v   (nf, VS)    the frames' IDFT at the block's indices, unless vglobal:
-//                   then block b's v is (caller's) scratch + b * nf * VS
+//   v   (nf, VS)    the frames' IDFT at the block's indices
 //   tw  (2M)        the twiddle table, when use_tw
 struct SynLayout {
-  int ds, nf, KS, use_tw, vglobal;
+  int ds, nf, KS, use_tw;
   int ds_shift, NQ, AS, VS, as, v, tw, total;  // log2(ds), sizes, offsets (floats)
   __host__ __device__ SynLayout() {}
-  __host__ __device__ SynLayout(int M, int r, int ds_, int nf_, int KS_, int use_tw_,
-                                int vglobal_)
-      : ds(ds_), nf(nf_), KS(KS_), use_tw(use_tw_), vglobal(vglobal_) {
+  __host__ __device__ SynLayout(int M, int r, int ds_, int nf_, int KS_, int use_tw_)
+      : ds(ds_), nf(nf_), KS(KS_), use_tw(use_tw_) {
     for (ds_shift = 0; (1 << ds_shift) < ds; ++ds_shift) {
     }
     NQ = r * ds;
@@ -834,7 +884,7 @@ struct SynLayout {
     VS = NQ + 1;
     as = KS * 2 * NQ;
     v = as + KS * AS;
-    tw = v + (vglobal ? 0 : (nf * VS + 1) & ~1);
+    tw = v + ((nf * VS + 1) & ~1);
     total = tw + (use_tw ? 2 * M : 0);
   }
 };
@@ -843,16 +893,14 @@ struct SynLayout {
 template <bool kTable>
 __global__ void __launch_bounds__(kThreadsS)
 synthesis_slab_kernel(const float2* __restrict__ A, const float* __restrict__ gf,
-                      float* __restrict__ y, float* __restrict__ vscratch, int T, int M,
-                      int m, int D, int b0, long long start, int out_len, SynLayout lay) {
+                      float* __restrict__ y, int T, int M, int m, int D, int b0,
+                      long long start, int out_len, SynLayout lay) {
   extern __shared__ __align__(16) float smem[];
   const int K = M / 2 + 1, NQ = lay.NQ, nf = lay.nf, AS = lay.AS, VS = lay.VS, ds = lay.ds;
   const int r = M / D, mr = m * r, nt = nf - mr + 1;
   float* Fs = smem;
   float* AsT = smem + lay.as;
-  const long long blin = (static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y) *
-                             gridDim.x + blockIdx.x;
-  float* v = lay.vglobal ? vscratch + blin * nf * VS : smem + lay.v;
+  float* v = smem + lay.v;
   float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
   const int c = blockIdx.y, d0 = blockIdx.z * ds;
   const long long b = b0 + blockIdx.x;
@@ -913,7 +961,7 @@ synthesis_slab_kernel(const float2* __restrict__ A, const float* __restrict__ gf
       }
     }
   }
-  __syncthreads();   // also orders v's device-memory writes before the reads below
+  __syncthreads();
 
   float* yc = y + static_cast<long long>(c) * out_len;
   for (int e = tid; e < nt * ds; e += blockDim.x) {
@@ -927,6 +975,107 @@ synthesis_slab_kernel(const float2* __restrict__ A, const float* __restrict__ gf
       acc = fmaf(__ldg(gf + d + jj * D), v[(fb + mr - 1 - jj) * VS + (jj % r) * ds + dl], acc);
     yc[j_out] = acc;
   }
+}
+
+// ---- synthesis through device memory ---------------------------------------
+// For configs whose slab block does not fit (m r^2 above ~7,000).  Rows t_lo ..
+// t_lo + nrows - 1 of the frames' IDFT go to v (C, nrows, M) in device
+// memory; frames outside [0, T) are zero.
+constexpr int kGF = 32;    // frames per IDFT block
+constexpr int kGN = 256;   // IDFT indices per block, one per thread
+constexpr int kGK = 32;    // bins per staged slab of spectra
+
+// v[c][f][n] = sum_k Re A cos(2 pi n k / M) - Im A sin(2 pi n k / M), A
+// irfft-scaled.  grid (row tiles, index groups, C).  A thread owns index n
+// and kGF frames; the block's spectra slab is read as a broadcast.
+template <bool kTable>
+__global__ void __launch_bounds__(kGN)
+synthesis_idft_kernel(const float2* __restrict__ A, float* __restrict__ v, int T, int M,
+                      long long t_lo, int nrows) {
+  extern __shared__ __align__(16) float smem[];
+  float2* As = reinterpret_cast<float2*>(smem);   // (kGK, kGF)
+  float2* tw = As + kGK * kGF;                     // (M,), kTable
+  const int K = M / 2 + 1, c = blockIdx.z, f0 = blockIdx.x * kGF;
+  const int n = blockIdx.y * kGN + threadIdx.x;
+  const int step = n < M ? n : 0;
+  const float2* Ac = A + static_cast<long long>(c) * T * K;
+  if constexpr (kTable) fill_twiddles(tw, M);
+  float acc[kGF];
+#pragma unroll
+  for (int f = 0; f < kGF; ++f) acc[f] = 0.f;
+  int idx = 0;   // (n k) mod M, stepped by n
+  for (int ka = 0; ka < K; ka += kGK) {
+    const int ks = min(kGK, K - ka);
+    __syncthreads();   // the twiddles are in place; the last slab is read
+    for (int e = threadIdx.x; e < kGK * kGF; e += blockDim.x) {
+      const int kl = e / kGF, fl = e - kl * kGF;
+      const long long t = t_lo + f0 + fl;
+      float2 a = make_float2(0.f, 0.f);
+      if (kl < ks && f0 + fl < nrows && t >= 0 && t < T) {
+        const int k = ka + kl;
+        a = Ac[t * K + k];
+        const float sc = (k == 0 || 2 * k == M) ? 1.f / M : 2.f / M;
+        a.x *= sc;
+        a.y *= sc;
+      }
+      As[e] = a;
+    }
+    __syncthreads();
+    const float4* a4 = reinterpret_cast<const float4*>(As);
+    for (int kl = 0; kl < ks; ++kl) {
+      const float2 t = twiddle<kTable>(tw, idx, M);
+      idx += step;
+      if (idx >= M) idx -= M;
+#pragma unroll
+      for (int f = 0; f < kGF; f += 2) {
+        const float4 a = a4[(kl * kGF + f) / 2];
+        acc[f] = fmaf(a.x, t.x, fmaf(-a.y, t.y, acc[f]));
+        acc[f + 1] = fmaf(a.z, t.x, fmaf(-a.w, t.y, acc[f + 1]));
+      }
+    }
+  }
+  if (n >= M) return;
+  float* vc = v + static_cast<long long>(c) * nrows * M;
+#pragma unroll
+  for (int f = 0; f < kGF; ++f)
+    if (f0 + f < nrows) vc[static_cast<long long>(f0 + f) * M + n] = acc[f];
+}
+
+// y[c][j] = sum_{jj < mr} gf[d + jj D] v[t - jj][(jj mod r) D + d], padded-
+// stream sample s = start + j = t D + d; one warp per sample, its lanes
+// taking jj = lane, lane + 32, ..., summed in double (the sum has up to m r
+// terms; the gather reads device memory, so the double adds cost nothing
+// measurable).  grid (ceil(out_len / 8), C), 256 threads.
+__global__ void __launch_bounds__(256)
+synthesis_ola_kernel(const float* __restrict__ v, const float* __restrict__ gf,
+                     float* __restrict__ y, int T, int M, int m, int D, long long t_lo,
+                     int nrows, long long start, int out_len) {
+  const long long j = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32, c = blockIdx.y;
+  if (j >= out_len) return;
+  const long long s = start + j, tf = s / D;
+  const int d = static_cast<int>(s - tf * D), r = M / D, mr = m * r;
+  const float* vc = v + static_cast<long long>(c) * nrows * M;
+  double acc = 0.0;   // up to m r terms a sample (32,768 at M = 4096 r = 4096)
+  for (int jj = lane; jj < mr; jj += 32) {
+    const long long t = tf - jj;
+    if (t < 0) break;
+    if (t < T)
+      acc = fma(static_cast<double>(__ldg(gf + d + jj * D)),
+                static_cast<double>(__ldg(vc + (t - t_lo) * M + (jj % r) * D + d)), acc);
+  }
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) y[static_cast<long long>(c) * out_len + j] = static_cast<float>(acc);
+}
+
+// The rows of the frames' IDFT the samples [start, start + out_len) need:
+// frames t_lo .. floor((start + out_len - 1) / D).
+void synthesis_rows(int M, int m, int D, long long start, int out_len, long long* t_lo,
+                    long long* nrows) {
+  const long long mr = static_cast<long long>(m) * (M / D);
+  const long long tf0 = start / D, tf1 = (start + out_len - 1) / D;
+  *t_lo = tf0 - mr + 1 > 0 ? tf0 - mr + 1 : 0;
+  *nrows = tf1 - *t_lo + 1;
 }
 
 // The largest dynamic shared memory a block of this device may opt in to.
@@ -965,72 +1114,122 @@ int analysis_layout(int M, int m, int D, int* groups, int* kpb, int* slabs, Slab
   }
 }
 
-// The slab synthesis layout, in order of preference: the frames' IDFT in
-// shared memory, the twiddle table, 32 residues per block, tiles of
-// synthesis_frames(mr) frames, and the most bins per slab; the first choice
-// with slabs of at least min(K, 32) bins, else the first that fits at all.
-// 0 and the layout, kNoFit, or a CUDA error.
+// Whether a slab block fits at all: its smallest layout (one bin per slab,
+// 8 residues, mr frames, no twiddle table), counted in 64 bits.  Above it
+// the layouts' int offsets could overflow, and neither block fits.
+bool synthesis_block_fits(int M, int m, int D, int budget) {
+  const long long r = M / D, mr = m * r;
+  return 16 * r + 2 * mr + 4 + mr * (8 * r + 1) <= budget;
+}
+
+// The slab synthesis layout, in order of preference: the twiddle table, 32
+// residues per block, tiles of synthesis_frames(mr) frames, and the most
+// bins per slab; the first choice with slabs of at least min(K, 32) bins,
+// else the first that fits at all.  0 and the layout, kNoFit, or a CUDA
+// error.
 int synthesis_slab_layout(int M, int m, int D, SynLayout* lay) {
   int optin;
   const int rc = smem_optin(&optin);
   if (rc) return rc;
   const int budget = optin / 4;
+  if (!synthesis_block_fits(M, m, D, budget)) return kNoFit;
   const int r = M / D, mr = m * r, K = M / 2 + 1;
   const int frames[2] = {synthesis_frames(mr), mr};
-  for (int vglobal = 0; vglobal < 2; ++vglobal)
-    for (int pass = 0; pass < 2; ++pass) {
-      const int want = pass == 0 ? (K < 32 ? K : 32) : 1;
-      for (int use_tw = 1; use_tw >= 0; --use_tw)
-        for (int ds = kDS; ds >= 8; ds /= 2)
-          for (int fi = 0; fi < 2; ++fi) {
-            const SynLayout one(M, r, ds, frames[fi], 1, use_tw, vglobal);
-            const int per = 2 * one.NQ + one.AS;
-            int ks = (budget - (one.total - per)) / per;
-            ks = ks < K ? ks : K;
-            if (ks >= want) {
-              *lay = SynLayout(M, r, ds, frames[fi], ks, use_tw, vglobal);
-              return 0;
-            }
+  for (int pass = 0; pass < 2; ++pass) {
+    const int want = pass == 0 ? (K < 32 ? K : 32) : 1;
+    for (int use_tw = 1; use_tw >= 0; --use_tw)
+      for (int ds = kDS; ds >= 8; ds /= 2)
+        for (int fi = 0; fi < 2; ++fi) {
+          const SynLayout one(M, r, ds, frames[fi], 1, use_tw);
+          const int per = 2 * one.NQ + one.AS;
+          int ks = (budget - (one.total - per)) / per;
+          ks = ks < K ? ks : K;
+          if (ks >= want) {
+            *lay = SynLayout(M, r, ds, frames[fi], ks, use_tw);
+            return 0;
           }
-    }
+        }
+  }
   return kNoFit;
 }
 
-// The synthesis's launch: whole-IDFT block (*slab = 0) or slab layout, grid
-// (tiles, C, residue groups) from tile b0 on, shared memory in bytes, and
-// the device-memory scratch in floats (0 unless the slab layout keeps v
-// there).  0, kNoFit, or a CUDA error.
+// The synthesis's launch: whole-IDFT block (*slab = 0), slab layout (1),
+// or the two kernels through device memory (2); grid (tiles, C, residue
+// groups) from tile b0 on (for 2: b0 is the first IDFT row t_lo and the
+// grid is unused), shared memory in bytes, and the device-memory scratch
+// in floats (for 2: the frames' IDFT rows; 0 otherwise).  0 or a CUDA
+// error.
 int synthesis_plan(int C, int M, int m, int D, long long start, int out_len, int* slab,
                    SynLayout* lay, dim3* grid, long long* b0, size_t* smem,
                    long long* scratch) {
   int optin;
   int rc = smem_optin(&optin);
   if (rc) return rc;
-  const SynthLayout whole(M, m, D);
-  *slab = 4ull * whole.total > static_cast<size_t>(optin);
-  int nf = whole.nf, ds = kDS;
-  *smem = 4ull * whole.total;
   *scratch = 0;
-  if (*slab) {
-    rc = synthesis_slab_layout(M, m, D, lay);
-    if (rc) return rc;
-    nf = lay->nf;
-    ds = lay->ds;
-    *smem = 4ull * lay->total;
+  int nf = 0, ds = kDS;
+  rc = kNoFit;
+  if (synthesis_block_fits(M, m, D, optin / 4)) {
+    const SynthLayout whole(M, m, D);
+    *slab = 4ull * whole.total > static_cast<size_t>(optin);
+    nf = whole.nf;
+    *smem = 4ull * whole.total;
+    rc = *slab ? synthesis_slab_layout(M, m, D, lay) : 0;
+    if (rc && rc != kNoFit) return rc;
+    if (*slab && rc == 0) {
+      nf = lay->nf;
+      ds = lay->ds;
+      *smem = 4ull * lay->total;
+    }
+  }
+  if (rc == kNoFit) {   // no block holds it: the frames' IDFT in device memory
+    long long t_lo, nrows;
+    synthesis_rows(M, m, D, start, out_len, &t_lo, &nrows);
+    *slab = 2;
+    *b0 = t_lo;
+    *scratch = static_cast<long long>(C) * nrows * M;
+    *smem = 8ull * (kGK * kGF + (8ull * (M + kGK * kGF) <= static_cast<size_t>(optin) ? M : 0));
+    return 0;
   }
   const int mr = m * M / D;
   const long long tile = static_cast<long long>(nf - mr + 1) * D;
   *b0 = start / tile;
   const long long b1 = (start + out_len - 1) / tile;
   *grid = dim3(static_cast<unsigned>(b1 - *b0 + 1), C, (D + ds - 1) / ds);
-  if (*slab && lay->vglobal)
-    *scratch = static_cast<long long>(grid->x) * grid->y * grid->z * lay->nf * lay->VS;
   return 0;
 }
 
 int set_smem(const void* kernel, size_t bytes) {
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+// The fused kernel's launch, unstaged (x (C, S)) or over the staged bank
+// (x (B, C, S), the buffer named by st).
+template <bool kStaged>
+int launch_analysis_beamform(const float* x, const float* hf, const float2* w, float2* y,
+                             int C, int S, int T, int M, int m, int D, Staged stg,
+                             void* stream) {
+  int groups, kpb, slabs;
+  SlabLayout lay;
+  int rc = analysis_layout(M, m, D, &groups, &kpb, &slabs, &lay);
+  if (rc) return rc;
+  const dim3 grid((T + kTF - 1) / kTF, 1, groups);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!slabs) {
+    const size_t smem = 4ull * analysis_smem_floats(M, m, D, kpb);
+    rc = set_smem(reinterpret_cast<const void*>(analysis_beamform_kernel<kStaged>), smem);
+    if (rc) return rc;
+    analysis_beamform_kernel<kStaged><<<grid, kThreadsA, smem, st>>>(x, hf, w, y, C, S, T, M,
+                                                                     m, D, kpb, stg);
+  } else {
+    const size_t smem = 4ull * lay.total;
+    auto kernel = lay.use_tw ? analysis_beamform_slab_kernel<true, kStaged>
+                             : analysis_beamform_slab_kernel<false, kStaged>;
+    rc = set_smem(reinterpret_cast<const void*>(kernel), smem);
+    if (rc) return rc;
+    kernel<<<grid, kThreadsA, smem, st>>>(x, hf, w, y, C, S, T, M, m, D, lay, stg);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1064,27 +1263,16 @@ int dsr_fb_analysis(const float* x, const float* hf, float2* out, int C, int S, 
 // x: (C, S) float32, hf: (L,), w: (K, C) complex64, y: (T, K) complex64.
 int dsr_fb_analysis_beamform(const float* x, const float* hf, const float2* w, float2* y,
                              int C, int S, int T, int M, int m, int D, void* stream) {
-  int groups, kpb, slabs;
-  SlabLayout lay;
-  int rc = analysis_layout(M, m, D, &groups, &kpb, &slabs, &lay);
-  if (rc) return rc;
-  const dim3 grid((T + kTF - 1) / kTF, 1, groups);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!slabs) {
-    const size_t smem = 4ull * analysis_smem_floats(M, m, D, kpb);
-    rc = set_smem(reinterpret_cast<const void*>(analysis_beamform_kernel), smem);
-    if (rc) return rc;
-    analysis_beamform_kernel<<<grid, kThreadsA, smem, st>>>(x, hf, w, y, C, S, T, M, m, D,
-                                                            kpb);
-  } else {
-    const size_t smem = 4ull * lay.total;
-    auto kernel = lay.use_tw ? analysis_beamform_slab_kernel<true>
-                             : analysis_beamform_slab_kernel<false>;
-    rc = set_smem(reinterpret_cast<const void*>(kernel), smem);
-    if (rc) return rc;
-    kernel<<<grid, kThreadsA, smem, st>>>(x, hf, w, y, C, S, T, M, m, D, lay);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_analysis_beamform<false>(x, hf, w, y, C, S, T, M, m, D, Staged{}, stream);
+}
+
+// The staged bank: xbank (B, C, S) float32; the buffer is idx[0] (device
+// memory) when idx is not null, else idx_host.  Otherwise as above.
+int dsr_fb_analysis_beamform_staged(const float* xbank, const int* idx, int idx_host, int B,
+                                    const float* hf, const float2* w, float2* y, int C, int S,
+                                    int T, int M, int m, int D, void* stream) {
+  const Staged stg{idx, idx_host, B, static_cast<long long>(C) * S};
+  return launch_analysis_beamform<true>(xbank, hf, w, y, C, S, T, M, m, D, stg, stream);
 }
 
 // The device-memory scratch (floats) dsr_fb_synthesis needs for these
@@ -1118,11 +1306,23 @@ int dsr_fb_synthesis(const float2* A, const float* gf, float* y, float* scratch,
     if (rc) return rc;
     synthesis_kernel<<<grid, kThreadsS, smem, st>>>(A, gf, y, T, M, m, D, static_cast<int>(b0),
                                                     start, out_len);
+  } else if (slab == 2) {
+    const long long nrows = need / (static_cast<long long>(C) * M);
+    const bool table = smem > 8ull * kGK * kGF;
+    auto idft = table ? synthesis_idft_kernel<true> : synthesis_idft_kernel<false>;
+    rc = set_smem(reinterpret_cast<const void*>(idft), smem);
+    if (rc) return rc;
+    idft<<<dim3(static_cast<unsigned>((nrows + kGF - 1) / kGF), (M + kGN - 1) / kGN, C), kGN,
+           smem, st>>>(A, scratch, T, M, b0, static_cast<int>(nrows));
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc) return rc;
+    synthesis_ola_kernel<<<dim3(static_cast<unsigned>((out_len + 7) / 8), C), 256, 0, st>>>(
+        scratch, gf, y, T, M, m, D, b0, static_cast<int>(nrows), start, out_len);
   } else {
     auto kernel = lay.use_tw ? synthesis_slab_kernel<true> : synthesis_slab_kernel<false>;
     rc = set_smem(reinterpret_cast<const void*>(kernel), smem);
     if (rc) return rc;
-    kernel<<<grid, kThreadsS, smem, st>>>(A, gf, y, scratch, T, M, m, D, static_cast<int>(b0),
+    kernel<<<grid, kThreadsS, smem, st>>>(A, gf, y, T, M, m, D, static_cast<int>(b0),
                                           start, out_len, lay);
   }
   return static_cast<int>(cudaGetLastError());

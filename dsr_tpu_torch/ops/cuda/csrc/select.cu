@@ -4,8 +4,9 @@
 // entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (or kNoFit for a shape it does not take).
 //
-// Replaces dsr_tpu/ops/pallas/select.py:221 _select_kernel (1-best mode;
-// the lattice mode, nlat > 0, is not ported yet).
+// Replaces dsr_tpu/ops/pallas/select.py:221 _select_kernel, both modes:
+// 1-best (dsr_select_pass) and lattice (nlat > 0, :277-311;
+// dsr_select_lattice).
 //
 // The function (per utterance u, over its n candidates (score, dst, arc)):
 // order by (dst asc, score desc, arc asc); the first of each dst run keeps
@@ -56,6 +57,24 @@
 // cannot shrink by merging: that case is one pass with one block per
 // utterance whose sort buffers live in the caller's global scratch (13
 // bytes per candidate, padded to a power of two) instead of shared memory.
+//
+// Lattice mode (the XLA path of topk_decoder.py:233-248): besides the
+// 1-best slots, each kept slot k gets the top nlat incoming arcs of its
+// state: the candidates at positions idx[k] + j (j < nlat) of the first
+// sort's order, where idx[k] is the start of slot k's dst run, valid while
+// they stay inside the run and the pool, the slot is alive, and their raw
+// score beats the same threshold max(val) - beam; column 0 is the winner
+// itself.  Invalid alternates are arc -1 and score NEG.  The second sort
+// overwrites the first's order in place and the payload already holds the
+// arc, so the kernel writes the dst-sorted (dst, score, arc) triples to a
+// device scratch of the caller's (12 bytes per candidate) before re-keying,
+// carries each slot's run-start position through the second sort in place
+// of its arc, and gathers the arc and the alternates from the scratch.  A
+// lattice pass is always one block per utterance (no partial lists: one
+// dst's alternates may span chunks), its sort buffers in shared memory up
+// to 16,384 candidates and in the global scratch above.  The 1-best and
+// lattice modes are two instantiations of one kernel; the 1-best one
+// compiles none of the lattice code.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +125,17 @@ __device__ void bitonic(uint64_t* key, uint32_t* pay, int n) {
   }
 }
 
+// The lattice mode's buffers: the dst-sorted triples (U, cap) and the
+// alternates' output (U, kcap, nlat).
+struct LatArgs {
+  int nlat;
+  int* d;
+  float* s;
+  int* a;
+  float* alt_s;
+  int* alt_a;
+};
+
 __device__ float block_max(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
@@ -124,13 +154,15 @@ __device__ float block_max(float v, float* red) {
 // dup_in (a pass over earlier lists): n_dup flags per utterance, of which
 // block c takes [c * group, (c + 1) * group).  gscratch: the sort buffers
 // in device memory (13 * cap bytes per block) instead of shared memory.
+// kLat: the lattice mode (one block per utterance, never partial).
+template <bool kLat>
 __global__ void __launch_bounds__(kThreads)
 select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
               const int* __restrict__ arc, const float* __restrict__ beam,
               const int* __restrict__ dup_in, int n_dup, int group, int n, int chunk,
               int cap, int kcap, int partial, float* __restrict__ out_s,
               int* __restrict__ out_d, int* __restrict__ out_a, int* __restrict__ dup_out,
-              unsigned char* __restrict__ gscratch) {
+              unsigned char* __restrict__ gscratch, LatArgs lat) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = blockIdx.x, u = blockIdx.y, nchunks = gridDim.x;
   unsigned char* buf = gscratch ? gscratch + 13 * static_cast<size_t>(cap) *
@@ -146,6 +178,7 @@ select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
   int np2 = 32;
   while (np2 < m) np2 <<= 1;
   const size_t row = static_cast<size_t>(u) * n + lo;
+  const size_t lrow = static_cast<size_t>(u) * cap;   // lattice scratch row
 
   // load; a dst of -1 is an empty slot of a first pass's list
   for (int i = threadIdx.x; i < np2; i += blockDim.x) {
@@ -175,6 +208,11 @@ select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
     flag[i] = first ? 1 : 0;
     if (valid) vmax = fmaxf(vmax, first ? unordered(~static_cast<uint32_t>(k), pay[i] & 1u) : kNeg);
     dup |= valid && !first;
+    if constexpr (kLat) {   // the first sort's order, kept for the alternates
+      lat.d[lrow + i] = valid ? static_cast<int>(k >> 32) : -1;
+      lat.s[lrow + i] = valid ? unordered(~static_cast<uint32_t>(k), pay[i] & 1u) : kNeg;
+      lat.a[lrow + i] = valid ? static_cast<int>(pay[i] >> 1) : -1;
+    }
   }
   if (dup_in != nullptr && threadIdx.x == 0)
     for (int j = c * group; j < min(n_dup, (c + 1) * group); ++j)
@@ -205,7 +243,8 @@ select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
       float v = flag[i] ? s : kNeg;
       if (!(v > thr)) v = kNeg;
       k2 = (static_cast<uint64_t>(~ordered(v)) << 32) | d;
-      p2 = (a << 1) | negzero(v);
+      // the lattice mode carries the run start's position instead of the arc
+      p2 = ((kLat ? static_cast<uint32_t>(i) : a) << 1) | negzero(v);
     }
     key[i] = k2;
     pay[i] = p2;
@@ -223,7 +262,7 @@ select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
       s = unordered(static_cast<uint32_t>(~(k >> 32)), pay[j] & 1u);
       if (partial || s > kNeg / 2) {
         d = static_cast<int>(static_cast<uint32_t>(k));
-        a = static_cast<int>(pay[j] >> 1);
+        a = kLat ? lat.a[lrow + (pay[j] >> 1)] : static_cast<int>(pay[j] >> 1);
       }
     }
     out_s[orow + j] = s;
@@ -232,6 +271,31 @@ select_kernel(const float* __restrict__ score, const int* __restrict__ dst,
   }
   if (partial && threadIdx.x == 0)
     dup_out[u * nchunks + c] = dup || (kcap < np2 && key[kcap] != kNoKey);
+  if constexpr (kLat) {
+    // alternate jj of slot j: position pos + jj of the first sort's order
+    const int nlat = lat.nlat;
+    const size_t arow = static_cast<size_t>(u) * kcap * nlat;
+    for (int e = threadIdx.x; e < kcap * nlat; e += blockDim.x) {
+      const int j = e / nlat;
+      const int jj = e - j * nlat;
+      const uint64_t k = j < np2 ? key[j] : kNoKey;
+      float as = kNeg;
+      int aa = -1;
+      if (k != kNoKey &&
+          unordered(static_cast<uint32_t>(~(k >> 32)), pay[j] & 1u) > kNeg / 2) {
+        const int pos = static_cast<int>(pay[j] >> 1);
+        if (static_cast<long long>(pos) + jj < m && lat.d[lrow + pos + jj] == lat.d[lrow + pos]) {
+          const float v = lat.s[lrow + pos + jj];
+          if (v > thr) {
+            as = v;
+            aa = lat.a[lrow + pos + jj];
+          }
+        }
+      }
+      lat.alt_s[arow + e] = as;
+      lat.alt_a[arow + e] = aa;
+    }
+  }
 }
 
 size_t smem_bytes(int cap) { return 13 * static_cast<size_t>(cap) + 33 * sizeof(float); }
@@ -240,6 +304,20 @@ int cap_of(int len) {
   int c = 32;
   while (c < len) c <<= 1;
   return c;
+}
+
+// Let the kernel's instantiation take a whole chunk's shared memory (once).
+template <bool kLat>
+int allow_smem() {
+  static bool done = false;
+  if (!done) {
+    cudaError_t e = cudaFuncSetAttribute(select_kernel<kLat>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes(kMaxChunk)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done = true;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -261,19 +339,38 @@ int dsr_select_pass(const float* score, const int* dst, const int* arc, const fl
   if (U < 1 || n < 1 || kcap < 1 || chunk < 1) return kNoFit;
   const int blocks = (n + chunk - 1) / chunk;
   if ((!partial && blocks != 1) || (gscratch == nullptr && chunk > kMaxChunk)) return kNoFit;
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t e = cudaFuncSetAttribute(select_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes(kMaxChunk)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attr = true;
-  }
+  const int rc = allow_smem<false>();
+  if (rc) return rc;
   const int cap = cap_of(n < chunk ? n : chunk);
   const size_t smem = gscratch ? smem_bytes(0) : smem_bytes(cap);
-  select_kernel<<<dim3(blocks, U), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  select_kernel<false><<<dim3(blocks, U), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       score, dst, arc, beam, dup_in, n_dup, group, n, chunk, cap, kcap, partial, out_s, out_d,
-      out_a, dup_out, static_cast<unsigned char*>(gscratch));
+      out_a, dup_out, static_cast<unsigned char*>(gscratch), LatArgs{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The lattice mode over score (U, n) f32, dst and arc (U, n) i32, beam (U,)
+// f32, one block per utterance: the 1-best slots to out_s/out_d/out_a (U,
+// kcap) as dsr_select_pass writes them, the alternates to alt_s/alt_a (U,
+// kcap, nlat).  lscratch: 12 * pow2(n) bytes per utterance (the dst-sorted
+// triples); gscratch: null for n <= 16,384, else 13 * pow2(n) bytes per
+// utterance (the sort buffers).
+int dsr_select_lattice(const float* score, const int* dst, const int* arc, const float* beam,
+                       int U, int n, int kcap, int nlat, float* out_s, int* out_d, int* out_a,
+                       float* alt_s, int* alt_a, void* lscratch, void* gscratch, void* stream) {
+  if (U < 1 || n < 1 || kcap < 1 || nlat < 1 || lscratch == nullptr ||
+      (gscratch == nullptr && n > kMaxChunk))
+    return kNoFit;
+  const int rc = allow_smem<true>();
+  if (rc) return rc;
+  const int cap = cap_of(n);
+  const size_t plane = static_cast<size_t>(U) * cap;
+  int* ld = static_cast<int*>(lscratch);
+  const LatArgs lat{nlat, ld, reinterpret_cast<float*>(ld + plane), ld + 2 * plane, alt_s, alt_a};
+  const size_t smem = gscratch ? smem_bytes(0) : smem_bytes(cap);
+  select_kernel<true><<<dim3(1, U), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      score, dst, arc, beam, nullptr, 0, 0, n, n, cap, kcap, 0, out_s, out_d, out_a, nullptr,
+      static_cast<unsigned char*>(gscratch), lat);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,9 @@ Counterpart of `dsr_tpu/ops/pallas/filterbank.py`.  Three CUDA kernels in
 `csrc/filterbank.cu` (analysis, fused analysis + fixed-weight beamform,
 synthesis), each D-parametric, so one kernel serves every (M, m, r) where
 the TPU had a D == 128 kernel and a general one.  The source says what
-bounds each kernel on the card and how its design answers that.
+bounds each kernel on the card and how its design answers that.  The fused
+kernel also runs over a staged bank of B signals (`analysis_beamform_
+staged`), with the buffer's index an int or read from device memory.
 
 Each wrapper dispatches on the device of the tensor it is given: on a CPU
 tensor it runs the plain version (torch.fft, `index_add_`, einsum), on a
@@ -27,7 +29,8 @@ from dsr_tpu_torch.ops.cuda import build
 from dsr_tpu_torch.ops.cuda.launch import check, on_cuda, stream
 
 # Kernel launches since the last `reset_launches()`, by kernel.
-launches = {"analysis": 0, "analysis_beamform": 0, "synthesis": 0}
+launches = {"analysis": 0, "analysis_beamform": 0, "analysis_beamform_staged": 0,
+            "synthesis": 0}
 
 
 def reset_launches() -> None:
@@ -85,9 +88,11 @@ def _kernels() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dsr_fb_analysis.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsr_fb_analysis_beamform_staged.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_synthesis_scratch.argtypes = [i, i, i, i, ll, i, p]
     lib.dsr_fb_synthesis.argtypes = [p, p, p, p, i, i, i, i, i, ll, i, p]
-    for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform, lib.dsr_fb_synthesis_scratch,
+    for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform,
+               lib.dsr_fb_analysis_beamform_staged, lib.dsr_fb_synthesis_scratch,
                lib.dsr_fb_synthesis):
         fn.restype = ctypes.c_int
     return lib
@@ -140,6 +145,41 @@ def analysis_beamform(x: torch.Tensor, hf: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def analysis_beamform_staged(xp: torch.Tensor, idx, hf: torch.Tensor, w: torch.Tensor,
+                             M: int, m: int, r: int, T: int) -> torch.Tensor:
+    """The fused kernel over buffer `idx` of a staged bank xp (B, C, S)
+    float32: equal to `analysis_beamform(xp[idx], ...)`.  idx: a Python
+    int, or a 0-d int32 tensor on the bank's device, which the kernel reads
+    itself (no host readback); an out-of-range device index gives NaN."""
+    B, C, S = xp.shape
+    if isinstance(idx, torch.Tensor):
+        if idx.dim() != 0 or idx.dtype != torch.int32:
+            raise ValueError(f"analysis_beamform_staged: idx must be a 0-d int32 tensor, got "
+                             f"{idx.dtype} of shape {tuple(idx.shape)}")
+        tensors = (xp, hf, w, idx)
+    else:
+        idx = int(idx)
+        if not 0 <= idx < B:
+            raise IndexError(f"analysis_beamform_staged: buffer {idx} of a bank of {B}")
+        tensors = (xp, hf, w)
+    if not on_cuda("analysis_beamform_staged", *tensors):
+        return analysis_beamform_plain(xp[int(idx)], hf, w, M, r, T)
+    K, D = M // 2 + 1, M // r
+    check("analysis_beamform_staged xp", xp, torch.float32, (B, C, S))
+    check("analysis_beamform_staged hf", hf, torch.float32, (m * M,))
+    check("analysis_beamform_staged w", w, torch.complex64, (K, C))
+    y = torch.empty((T, K), dtype=torch.complex64, device=xp.device)
+    if C == 0:
+        return y.zero_()
+    dev_idx = isinstance(idx, torch.Tensor)
+    rc = _kernels().dsr_fb_analysis_beamform_staged(
+        xp.data_ptr(), idx.data_ptr() if dev_idx else None, 0 if dev_idx else idx, B,
+        hf.data_ptr(), w.data_ptr(), y.data_ptr(), C, S, T, M, m, D, stream())
+    _raise_on(rc, "analysis_beamform_staged", M, m, r)
+    launches["analysis_beamform_staged"] += 1
+    return y
+
+
 def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: int,
               out_len: int) -> torch.Tensor:
     """A (C, T, M//2+1) complex64, gf (m·M,) float32 → (C, out_len) float32;
@@ -157,8 +197,9 @@ def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: 
     if y.numel() == 0:
         return y
     lib = _kernels()
-    # device memory for the frames' IDFT, for configs whose block cannot
-    # hold it (m·r² above ~7,000); none otherwise
+    # device memory for the IDFT of every frame the output needs, for
+    # configs whose block cannot hold the frames' IDFT (m·r² above
+    # ~7,000); none otherwise
     floats = ctypes.c_longlong()
     rc = lib.dsr_fb_synthesis_scratch(C, M, m, D, start, out_len, ctypes.byref(floats))
     _raise_on(rc, "synthesis", M, m, r)

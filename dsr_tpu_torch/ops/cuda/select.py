@@ -19,10 +19,22 @@ stays as computed: NEG, or a kept value that low), as the Pallas kernel
 writes them.  The CUDA kernel (`csrc/select.cu`) computes this function
 exactly, so unlike the TPU kernel it has no spill certificate.
 
+Lattice mode (`nlat > 0`, the XLA path's `topk_decoder.py:233-248`): each
+kept slot also gets its state's top `nlat` incoming arcs, the candidates
+at positions idx[k] + j (j < nlat) of step 1's order, where idx[k] is the
+start of slot k's dst run; an alternate is valid while it stays inside
+the run and the pool, the slot is alive, and its raw score beats max(val)
+- beam (the threshold of step 3).  Column 0 is the winner itself; invalid
+alternates are arc -1 and score NEG.  The result is the 1-best triple,
+unchanged, plus (U, kcap, nlat) score and arc planes; dst stays (U, kcap)
+(the Pallas wrapper repeated it nlat times).  Any nlat >= 1 is taken, as
+the XLA path takes it (the TPU kernel took 2, 4 and 8).
+
 `recombine_topk` dispatches on the device of its tensors: on CPU tensors
 it runs the plain twin (`torch.sort`), on CUDA tensors it launches the
-kernel and adds one to `launches["select"]` per launch, or raises.  The
-kernel takes arc ids in [0, 2^31) and dst ids in [0, 2^31 - 1).
+kernel and adds one to `launches["select"]` (1-best) or
+`launches["select_lattice"]` per launch, or raises.  The kernel takes arc
+ids in [0, 2^31) and dst ids in [0, 2^31 - 1).
 """
 
 from __future__ import annotations
@@ -43,7 +55,7 @@ NEG = -1e30
 CHUNK = 16384
 
 # Kernel launches since the last `reset_launches()`.
-launches = {"select": 0}
+launches = {"select": 0, "select_lattice": 0}
 
 
 def reset_launches() -> None:
@@ -52,10 +64,11 @@ def reset_launches() -> None:
 
 
 def recombine_topk_plain(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Tensor,
-                         beam: torch.Tensor, kcap: int):
+                         beam: torch.Tensor, kcap: int, nlat: int = 0):
     """The sort path, batched: cand (U, N) float32, fdst/arcs (U, N) int32,
     beam (U,) float32 → (scores (U, kcap) float32, dst (U, kcap) int32,
-    arc (U, kcap) int32)."""
+    arc (U, kcap) int32) [+ (alt_scores, alt_arcs) (U, kcap, nlat) when
+    nlat > 0]."""
     U, N = cand.shape
     # lexicographic (dst, -score, arc): stable sorts from the last key to the first
     order = torch.sort(arcs, dim=1, stable=True).indices
@@ -67,20 +80,31 @@ def recombine_topk_plain(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Ten
     first[:, 1:] = sd[:, 1:] != sd[:, :-1]
     neg = torch.tensor(NEG, dtype=cand.dtype, device=cand.device)
     val = torch.where(first, sv, neg)
-    mx = val.max(dim=1, keepdim=True).values
-    val = torch.where(val > mx - beam[:, None], val, neg)
+    thr = val.max(dim=1, keepdim=True).values - beam[:, None]
+    val = torch.where(val > thr, val, neg)
     k = min(kcap, N)
     top = torch.sort(val, dim=1, descending=True, stable=True).indices[:, :k]
     scores = val.gather(1, top)
     alive = scores > NEG / 2
     dst = torch.where(alive, sd.gather(1, top), 0).to(torch.int32)
     arc = torch.where(alive, sa.gather(1, top), -1).to(torch.int32)
+    out = [scores, dst, arc]
+    if nlat:
+        # slot j's run starts at sorted position top[j]; its alternates are
+        # the next nlat positions while they stay in the run
+        pos = top[:, :, None] + torch.arange(nlat, device=cand.device)
+        posc = pos.clamp(max=N - 1).reshape(U, -1)
+        v = sv.gather(1, posc).reshape(U, k, nlat)
+        ok = ((sd.gather(1, posc).reshape(U, k, nlat) == sd.gather(1, top)[:, :, None])
+              & (pos < N) & alive[:, :, None] & (v > thr[:, :, None]))
+        out += [torch.where(ok, v, neg),
+                torch.where(ok, sa.gather(1, posc).reshape(U, k, nlat), -1).to(torch.int32)]
     if k < kcap:            # fewer candidates than slots: dead slots
         pad = kcap - k
-        scores = torch.nn.functional.pad(scores, (0, pad), value=NEG)
-        dst = torch.nn.functional.pad(dst, (0, pad), value=0)
-        arc = torch.nn.functional.pad(arc, (0, pad), value=-1)
-    return scores, dst, arc
+        fills = (NEG, 0, -1, NEG, -1)
+        out = [torch.nn.functional.pad(o, (0, 0, 0, pad) if o.dim() == 3 else (0, pad),
+                                       value=f) for o, f in zip(out, fills)]
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,6 +113,8 @@ def _kernel() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dsr_select_pass.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
     lib.dsr_select_pass.restype = ctypes.c_int
+    lib.dsr_select_lattice.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]
+    lib.dsr_select_lattice.restype = ctypes.c_int
     return lib
 
 
@@ -116,24 +142,51 @@ def _pass(lists, beam, dup_in, group, chunk, kcap, partial, gscratch=None):
     return out, flags
 
 
+def _lattice(cand, fdst, arcs, beam, kcap, nlat):
+    """The lattice mode: one launch, one block per utterance (module
+    docstring of csrc/select.cu)."""
+    U, N = cand.shape
+    dev = cand.device
+    cap = 1 << max(5, (N - 1).bit_length())
+    lscratch = torch.empty(3 * U * cap, dtype=torch.int32, device=dev)
+    gscratch = (torch.empty(U * 13 * cap, dtype=torch.uint8, device=dev) if N > CHUNK
+                else None)
+    out = (torch.empty((U, kcap), dtype=torch.float32, device=dev),
+           torch.empty((U, kcap), dtype=torch.int32, device=dev),
+           torch.empty((U, kcap), dtype=torch.int32, device=dev),
+           torch.empty((U, kcap, nlat), dtype=torch.float32, device=dev),
+           torch.empty((U, kcap, nlat), dtype=torch.int32, device=dev))
+    rc = _kernel().dsr_select_lattice(
+        cand.data_ptr(), fdst.data_ptr(), arcs.data_ptr(), beam.data_ptr(), U, N, kcap, nlat,
+        *(t.data_ptr() for t in out), lscratch.data_ptr(),
+        None if gscratch is None else gscratch.data_ptr(), stream())
+    if rc != 0:
+        raise RuntimeError(f"select kernel (lattice mode) failed to launch: CUDA error {rc}")
+    launches["select_lattice"] += 1
+    return out
+
+
 def recombine_topk(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Tensor, beam,
-                   kcap: int):
+                   kcap: int, nlat: int = 0):
     """Recombine, beam-prune and select the top kcap of each utterance's
     candidates (module docstring).  cand (U, N) float32, fdst and arcs
     (U, N) int32, beam a (U,) float32 tensor or a number → (scores, dst,
-    arc), each (U, kcap)."""
-    if cand.dim() != 2 or cand.shape[1] < 1 or kcap < 1:
-        raise ValueError(f"recombine_topk: need (U, N) candidates with N >= 1 and kcap >= 1, "
-                         f"got shape {tuple(cand.shape)} and kcap={kcap}")
+    arc), each (U, kcap) [+ (alt_scores, alt_arcs), each (U, kcap, nlat),
+    when nlat > 0]."""
+    if cand.dim() != 2 or cand.shape[1] < 1 or kcap < 1 or nlat < 0:
+        raise ValueError(f"recombine_topk: need (U, N) candidates with N >= 1, kcap >= 1 and "
+                         f"nlat >= 0, got shape {tuple(cand.shape)}, kcap={kcap}, nlat={nlat}")
     U, N = cand.shape
     if not isinstance(beam, torch.Tensor):
         beam = torch.full((U,), float(beam), dtype=torch.float32, device=cand.device)
     if not on_cuda("recombine_topk", cand, fdst, arcs, beam):
-        return recombine_topk_plain(cand, fdst, arcs, beam, kcap)
+        return recombine_topk_plain(cand, fdst, arcs, beam, kcap, nlat)
     check("recombine_topk cand", cand, torch.float32, (U, N))
     check("recombine_topk fdst", fdst, torch.int32, (U, N))
     check("recombine_topk arcs", arcs, torch.int32, (U, N))
     check("recombine_topk beam", beam, torch.float32, (U,))
+    if nlat:
+        return _lattice(cand, fdst, arcs, beam, kcap, nlat)
     lists, flags = (cand, fdst, arcs), None
     if N > CHUNK and 2 * kcap > CHUNK:
         # lists of more than half a block cannot shrink by merging: one

@@ -7,7 +7,9 @@ launch the hand-written kernels of `ops/cuda/filterbank.py` for every
 config; on a CPU tensor they run the plain versions beside those kernels,
 which follow the JAX package's XLA paths.  `analysis_beamform` is the
 fused analysis + fixed-weight beamform of the serving path (the JAX
-package's `ops/pallas/filterbank.analysis_beamform`).
+package's `ops/pallas/filterbank.analysis_beamform`); `stage_for_beamform`
+and `analysis_beamform_staged` run it over a bank of signals staged once
+on the device, addressed by buffer index.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from dsr_tpu_torch.config import FilterbankConfig
 from dsr_tpu_torch.ops.cuda import filterbank as _kern
 from dsr_tpu_torch.utils import design
 from dsr_tpu_torch.utils.design import get_prototypes
+from dsr_tpu_torch.utils.device import resolve
 
-__all__ = ["analysis", "analysis_beamform", "get_prototypes", "num_frames", "synthesis"]
+__all__ = ["analysis", "analysis_beamform", "analysis_beamform_staged", "get_prototypes",
+           "num_frames", "stage_for_beamform", "synthesis"]
 
 
 def as_f32(h, device: torch.device) -> torch.Tensor:
@@ -70,6 +74,34 @@ def analysis_beamform(x: torch.Tensor, w: torch.Tensor, cfg: FilterbankConfig,
     T = num_frames(x.shape[-1], cfg)
     return _kern.analysis_beamform(x, hf, w.to(torch.complex64).contiguous(),
                                    cfg.M, cfg.m, cfg.r, T)
+
+
+def stage_for_beamform(x, device=None) -> torch.Tensor:
+    """Stage (..., C, S) signals once, at ingest, as the bank the fused
+    kernel reads: a contiguous float32 (B, C, S) tensor on `device` (the
+    card unless "cpu"; a tensor's own device when it is one).  The JAX
+    package padded each buffer into its kernel's (C·rows, 128) frame grid
+    for a given config; the port's kernel needs no padded grid, so the bank
+    is the signals as they are, whatever the config."""
+    dev = x.device if isinstance(x, torch.Tensor) and device is None else resolve(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return x.reshape(-1, *x.shape[-2:]).contiguous()
+
+
+def analysis_beamform_staged(xp: torch.Tensor, idx, w: torch.Tensor, cfg: FilterbankConfig,
+                             num_samples: int, hf=None) -> torch.Tensor:
+    """Fused analysis + beamform of buffer `idx` of a staged bank.
+
+    xp: `stage_for_beamform`'s (B, C, S) bank; idx: a Python int or a 0-d
+    int32 tensor on the bank's device (read by the kernel, the counterpart
+    of the TPU kernel's scalar prefetch: a serving loop over the bank needs
+    no host readback); w: (K, C) complex weights → (T, K) complex64 for
+    T = num_frames(num_samples), equal to `analysis_beamform(xp[idx], w)`
+    when num_samples is the bank's S.
+    """
+    hf = prototype_tensors(cfg, xp.device)[0] if hf is None else as_f32(hf, xp.device)
+    return _kern.analysis_beamform_staged(xp, idx, hf, w.to(torch.complex64).contiguous(),
+                                          cfg.M, cfg.m, cfg.r, num_frames(num_samples, cfg))
 
 
 def synthesis(

@@ -41,7 +41,8 @@ def test_cpu_tensors_run_plain_and_leave_launch_counters_at_zero():
     A = tfb.analysis(x, cfg)
     tfb.synthesis(A, cfg, 2000)
     Y = tfb.analysis_beamform(x, w, cfg)
-    assert cfb.launches == {"analysis": 0, "analysis_beamform": 0, "synthesis": 0}
+    assert cfb.launches == {"analysis": 0, "analysis_beamform": 0,
+                            "analysis_beamform_staged": 0, "synthesis": 0}
     assert torch.allclose(Y, A.mean(0), atol=1e-6)
 
 

@@ -19,6 +19,7 @@ tests/test_torch_decode_chunks.py.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import logliks, lvcsr_v300, words
 from dsr_tpu.asr.decoder import topk_decoder as jtk
@@ -62,13 +63,21 @@ def test_dense_decode_words_on_raw_logliks(graphs):
         assert abs(float(s) - float(rs)) <= 1e-5 * abs(float(rs))
 
 
-def test_exact_select_never_spills_and_lattice_mode_waits(graphs):
+def test_exact_select_never_spills_and_lattice_column_zero_is_the_one_best(graphs):
     task, _, tg = graphs
     ll = logliks(np.random.default_rng(12), (20, task.num_pdfs), rounded=False)
     spill = tk.decode_with_tokens(tg, ll, kcap=KCAP, beam=BEAM, return_spill=True)[-1]
     assert spill.shape == (20,) and not spill.any()
     assert not tk.decode_batch(tg, ll[None], [20], kcap=KCAP, return_spill=True)[2].any()
-    with pytest.raises(NotImplementedError, match="lattice"):
-        tk.decode_with_tokens(tg, ll, nlat=4)
-    with pytest.raises(NotImplementedError, match="lattice"):
-        tk.decode_chunk(tg, ll, tk.stream_start(tg, KCAP), nlat=4)
+    o, s, ts, ta, tsc = tk.decode_with_tokens(tg, ll, kcap=KCAP, beam=BEAM)
+    lo, ls, lts, lta, ltsc, aa, asc, lspill = tk.decode_with_tokens(
+        tg, ll, kcap=KCAP, beam=BEAM, nlat=4, return_spill=True)
+    assert lspill.shape == (20,) and not lspill.any()
+    assert torch.equal(lo, o) and torch.equal(ls, s)
+    assert torch.equal(lts, ts) and torch.equal(lta, ta) and torch.equal(ltsc, tsc)
+    assert aa.shape == (20, KCAP, 4) and torch.equal(aa[..., 0], ta)
+    live = ta >= 0
+    assert torch.equal(asc[..., 0][live], tsc[live])
+    carry, toks = tk.decode_chunk(tg, ll, tk.stream_start(tg, KCAP), KCAP, BEAM, nlat=4,
+                                  return_spill=True)
+    assert len(toks) == 6 and not toks[-1].any() and torch.equal(toks[3], aa)

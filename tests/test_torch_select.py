@@ -59,7 +59,7 @@ def test_wrapper_runs_the_twin_on_cpu_and_refuses_other_devices():
     out = sel.recombine_topk(c, d, a, 10.0, 64)
     ref = sel.recombine_topk_plain(c, d, a, torch.full((2,), 10.0), 64)
     assert all(torch.equal(x, y) for x, y in zip(out, ref))
-    assert sel.launches == {"select": 0}
+    assert sel.launches == {"select": 0, "select_lattice": 0}
     with pytest.raises(ValueError, match="CUDA device or all on"):
         sel.recombine_topk(c.to("meta"), d.to("meta"), a.to("meta"), 10.0, 64)
     with pytest.raises(ValueError, match="N >= 1"):

@@ -140,3 +140,82 @@ def test_kernel_blocks_in_numpy_match_twin():
             assert np.array_equal(got[0].view(np.uint32), ref[0][0].numpy().view(np.uint32))
             assert np.array_equal(got[1], ref[1][0].numpy())
             assert np.array_equal(got[2], ref[2][0].numpy())
+
+
+def _lattice_block_in_numpy(s, d, a, beam, kcap, nlat):
+    """select_kernel<true>: one block over the whole pool.  After the first
+    sort the (dst, score, arc) triples go to the scratch; the second sort
+    carries each entry's position in place of its arc; the slots gather
+    their arc and their alternates (positions pos .. pos + nlat - 1 while
+    in the run, the pool and the beam) from the scratch."""
+    n = len(s)
+    key = (d.astype(np.uint64) << np.uint64(32)) | (~_ordered(s)).astype(np.uint64)
+    pay = (a.astype(np.uint32) << np.uint32(1)) | _negzero(s)
+    o = np.lexsort((pay, key))
+    key, pay = key[o], pay[o]
+    hi = key >> np.uint64(32)
+    first = np.r_[True, hi[1:] != hi[:-1]]
+    ls = _unordered((~key) & _LO, pay & 1)
+    ld, la = hi.astype(np.int64), (pay >> np.uint32(1)).astype(np.int64)
+    mx = np.where(first, ls, F32NEG).max()
+    if (~first).any():
+        mx = max(mx, F32NEG)
+    thr = np.float32(mx) - np.float32(beam)
+    v = np.where(first, ls, F32NEG)
+    v = np.where(v > thr, v, F32NEG).astype(np.float32)
+    key2 = ((_ordered(v).astype(np.uint64) ^ _LO) << np.uint64(32)) | hi
+    pay2 = (np.arange(n, dtype=np.uint32) << np.uint32(1)) | _negzero(v)
+    o = np.lexsort((pay2, key2))
+    key2, pay2 = key2[o], pay2[o]
+    k = min(kcap, n)
+    val = _unordered((key2[:k] >> np.uint64(32)) ^ _LO, pay2[:k] & 1)
+    pos = (pay2[:k] >> np.uint32(1)).astype(np.int64)
+    alive = val > NEG / 2
+    out = [np.full(kcap, F32NEG, np.float32), np.zeros(kcap, np.int32), np.full(kcap, -1, np.int32),
+           np.full((kcap, nlat), F32NEG, np.float32), np.full((kcap, nlat), -1, np.int32)]
+    out[0][:k] = val
+    out[1][:k] = np.where(alive, (key2[:k] & _LO).astype(np.int64), 0)
+    out[2][:k] = np.where(alive, la[pos], -1)
+    p = pos[:, None] + np.arange(nlat)
+    pc = np.minimum(p, n - 1)
+    ok = alive[:, None] & (p < n) & (ld[pc] == ld[pos][:, None]) & (ls[pc] > thr)
+    out[3][:k] = np.where(ok, ls[pc], F32NEG)
+    out[4][:k] = np.where(ok, la[pc], -1)
+    return out
+
+
+def test_lattice_block_in_numpy_matches_twin_and_sort_path():
+    """The lattice mode's block (its scratch of dst-sorted triples and the
+    run-start positions carried through the second sort), in NumPy, equals
+    the twin bit for bit, and the twin's alternates equal the JAX decoders'
+    XLA lattice path (`topk_decoder.py:233-248`) transcribed to NumPy:
+    beams 40 / 2 / 1e9, nlat 1 to 512 (beyond any run), signed zeros,
+    pools smaller than kcap."""
+    for seed, (N, kcap, ndst, nlat) in enumerate([
+            (2304, 256, 768, 4), (3000, 128, 100, 8), (700, 40, 5000, 3), (100, 256, 30, 1),
+            (4805, 155, 155, 512)]):
+        for beam in (40.0, 2.0, 1e9):
+            c, d, a = select_case(100 + seed, 1, N, ndst, grid=2.0, pad=0.15)
+            c[0, ::50] = -0.0
+            ref = sel.recombine_topk_plain(*(torch.as_tensor(x) for x in (c, d, a)),
+                                           torch.tensor([beam], dtype=torch.float32), kcap, nlat)
+            got = _lattice_block_in_numpy(c[0], d[0], a[0], beam, kcap, nlat)
+            for g, r in zip(got, ref):
+                r = r[0].numpy()
+                assert np.array_equal(g.view(np.uint32) if g.dtype == np.float32 else g,
+                                      r.view(np.uint32) if r.dtype == np.float32 else r)
+            # the XLA path: sort by (dst, -score, arc), idx = top_k's run starts
+            order = np.lexsort((a[0], -c[0], d[0]))
+            sd, sv, sa = d[0][order], c[0][order], a[0][order]
+            first = np.r_[True, sd[1:] != sd[:-1]]
+            val = np.where(first, sv, F32NEG)
+            thr = np.float32(val.max()) - np.float32(beam)
+            val = np.where(val > thr, val, F32NEG)
+            idx = np.argsort(-val, kind="stable")[:kcap]
+            pos = idx[:, None] + np.arange(nlat)
+            pc = np.minimum(pos, N - 1)
+            ok = ((sd[pc] == sd[idx][:, None]) & (pos < N) & (val[idx] > NEG / 2)[:, None]
+                  & (sv[pc] > thr))
+            k = len(idx)
+            assert np.array_equal(ref[4][0, :k].numpy(), np.where(ok, sa[pc], -1))
+            assert np.array_equal(ref[3][0, :k].numpy(), np.where(ok, sv[pc], F32NEG))

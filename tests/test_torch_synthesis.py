@@ -30,3 +30,55 @@ def test_synthesis_matches_jax_and_reconstructs(M, ref):
     if M == 256:  # designed prototypes: near-perfect reconstruction
         err_db = 20 * np.log10(np.max(np.abs(y.numpy() - x)) / np.max(np.abs(x)))
         assert err_db < -50.0
+
+
+def test_device_memory_synthesis_route_in_numpy_matches_twin():
+    """The synthesis route for configs whose slab block does not fit
+    (`csrc/filterbank.cu`: synthesis_rows, synthesis_idft_kernel,
+    synthesis_ola_kernel), transcribed to NumPy at small sizes with large
+    m·r: every frame's IDFT at all M indices in rows t_lo.., then each
+    output sample gathers m·r frames.  Against the plain twin, 1e-5; at
+    M = 64 m = 8 r = 64 (m·r = 512, D = 1) the twin also against the JAX
+    package's synthesis, 1e-5."""
+    from dsr_tpu.config import FilterbankConfig as JFilterbankConfig
+    from dsr_tpu_torch.config import FilterbankConfig
+    from dsr_tpu_torch.ops.cuda import filterbank as cfb
+
+    rng = np.random.default_rng(3)
+    for M, m, r, T, start, out_len in ((16, 4, 8, 70, 40, 50), (32, 8, 32, 300, 255, 30),
+                                       (24, 2, 4, 30, 0, 100), (64, 8, 64, 700, 511, 100)):
+        D, K, mr = M // r, M // 2 + 1, m * r
+        A = (rng.standard_normal((2, T, K)) + 1j * rng.standard_normal((2, T, K))).astype(
+            np.complex64)
+        gf = rng.standard_normal(m * M).astype(np.float32)
+        out_len = min(out_len, (T - 1) * D + m * M - start)
+        t_lo = max(0, start // D - mr + 1)
+        nrows = (start + out_len - 1) // D - t_lo + 1
+        scale = np.full(K, 2.0 / M)
+        scale[0] = 1.0 / M
+        if M % 2 == 0:
+            scale[M // 2] = 1.0 / M
+        n, k = np.arange(M)[:, None], np.arange(K)[None, :]
+        cs, sn = np.cos(2 * np.pi * n * k / M), np.sin(2 * np.pi * n * k / M)
+        v = np.zeros((2, nrows, M))
+        for f in range(nrows):
+            t = t_lo + f
+            if t < T:
+                a = A[:, t] * scale
+                v[:, f] = a.real @ cs.T - a.imag @ sn.T
+        y = np.zeros((2, out_len))
+        for j in range(out_len):
+            s = start + j
+            tf, d = s // D, s % D
+            for jj in range(mr):
+                t = tf - jj
+                if 0 <= t < T:
+                    y[:, j] += gf[d + jj * D] * v[:, t - t_lo, (jj % r) * D + d]
+        ref = cfb.synthesis_plain(torch.as_tensor(A), torch.as_tensor(gf), M, r, start, out_len)
+        assert rel(y, ref.numpy()) < TOL
+        if (M, m, r) == (64, 8, 64):   # delay 0: the output starts at L - D
+            y_jax = np.asarray(jfb.synthesis(A, JFilterbankConfig(M=M, m=m, r=r), out_len, gf, 0))
+            y_port = tfb.synthesis(torch.as_tensor(A), FilterbankConfig(M=M, m=m, r=r), out_len,
+                                   gf, 0)
+            assert torch.equal(y_port, ref)
+            assert rel(y_port.numpy(), y_jax) < TOL
