@@ -16,9 +16,14 @@ Phases, each of which fails the run loudly:
      frames, static and per-frame delays; the banded Viterbi kernel at the
      force-align shape and a batch, bitwise; the shapes that raised before:
      the select kernel at 269,312 candidates with kcap 1024 (bitwise) and
-     the filterbank kernels at four configs above the shared-memory opt-in;
-     and, untimed, each kernel's variants for inputs beyond those (delta,
-     B, the select sort or the DFT tables in device memory or in slabs);
+     the filterbank kernels at four configs above the shared-memory opt-in,
+     the analysis also at 8 ch x 1 s of three of them, each against
+     torch.stft; the select kernel's edge cases (a beam of 1e31 over NEG +
+     NEG, a single dst, all dsts distinct, kcap above N, identical
+     candidates) in both modes, bitwise; the analysis at M = 65,536 and a
+     prime M; and, untimed, each kernel's
+     variants for inputs beyond those (delta, B, the select table or the
+     FFT or the DFT tables in device memory or in slabs);
   3. the front end's main path: `DsrPipeline.process` (MVDR) on 4 requests
      of 8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
      beamform (fused analysis+beamform -> synthesis) at 64 ch x 8 s; the
@@ -239,8 +244,8 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, flops)
         print(f"{name:18s} {label:34s} rel err {err:.2e} (bound {tol:.0e})  kernel "
               f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound {b_ms:.4f} ms "
-              f"({b_by})  [{smi}]")
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms ({ms / lib_ms:.2f}x)'}  bound "
+              f"{b_ms:.4f} ms ({b_by})  [{smi}]")
         check(err <= tol, f"{name} {label}: rel err {err:.3e} > {tol}")
         return dict(max_abs_err=float((out - ref).abs().max()), rel_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -341,12 +346,19 @@ def main() -> int:
               + " / ".join(f"{e:.2e}" for e in errs))
         check(max(errs) <= TOL, f"kernels at M={c.M} m={c.m} r={c.r}")
 
-    # configs whose blocks exceeded the card's shared-memory opt-in before
-    # the analysis took its DFT in slabs of pairs and the synthesis its IDFT
-    # in slabs of bins; random prototypes as tests/_torch_parity.py's
+    # configs whose whole-block layouts exceed the card's shared-memory
+    # opt-in, so the fused kernel takes its DFT in slabs of pairs and the
+    # synthesis its IDFT in slabs of bins (the analysis's FFT takes them as
+    # any other); random prototypes as tests/_torch_parity.py's
     # filterbank_case makes them; 4 ch x 1 s, each kernel timed
     for M, m, r in ((512, 4, 4), (1024, 4, 2), (768, 4, 1), (768, 4, 2)):
         c = FilterbankConfig(M=M, m=m, r=r)
+        if (M, r) != (768, 2):   # the analysis also at 8 ch x 1 s, its own inputs
+            r8 = np.random.default_rng(M + r)
+            analysis_case(c, torch.as_tensor(r8.standard_normal((8, 16000)).astype(np.float32),
+                                             device=dev),
+                          torch.as_tensor(r8.standard_normal(c.L).astype(np.float32) / 16,
+                                          device=dev), f"8 ch x 1 s M={M} m={m} r={r}", False)
         h, g = (torch.as_tensor(rng.standard_normal(c.L).astype(np.float32) / 16, device=dev)
                 for _ in range(2))
         xs = signal(4, 1.0)
@@ -384,8 +396,8 @@ def main() -> int:
     for N, kcap, label in ((2304, 256, "split monophone (256+896)x2"),
                            (4608, 512, "split triphone (512+640)x4"),
                            (12032, 256, "dense monophone 256x47"),
-                           (134656, 512, "dense triphone 512x263, two launches"),
-                           (269312, 1024, "dense triphone 1024x263, three launches")):
+                           (134656, 512, "dense triphone 512x263"),
+                           (269312, 1024, "dense triphone 1024x263")):
         for beam in (40.0, 1e9):
             args = select_case(N, kcap, beam, N + int(beam))
             out = csel.recombine_topk(*args, kcap)
@@ -464,6 +476,39 @@ def main() -> int:
           f"{b_ms:.5f} ms ({b_by})  [{smi}]")
     record["select_lattice"] = dict(max_abs_err=err, rel_err=0.0, ms=ms, plain_ms=plain_ms,
                                     bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    # the select kernel's edge cases, both modes, bitwise against the twin
+    # (U = 8): every candidate at NEG + NEG under a beam of 1e31 (the kept
+    # values below NEG come after the NEG slots), with and without
+    # duplicate dsts; a single dst; all dsts distinct; kcap above N; 1,500
+    # identical candidates (the decoders' dead tokens repeat their arcs)
+    # filling one bucket past the sort buffer
+    re_ = np.random.default_rng(11)
+    edges = []
+    for name, N, kcap, ndst, neg, beam, nlat in (
+            ("NEG + NEG, duplicates, beam 1e31", 12032, 256, 500, True, 1e31, 4),
+            ("NEG + NEG, distinct dsts, beam 1e31", 2304, 256, None, True, 1e31, 4),
+            ("a single dst", 12032, 64, 1, False, 40.0, 8),
+            ("a single dst, beam 1e31", 134656, 64, 1, False, 1e31, 8),
+            ("all dsts distinct", 12032, 256, None, False, 40.0, 4),
+            ("kcap above N", 100, 256, 60, False, 1e9, 4),
+            ("kcap above N, the table in device memory", 13000, 16000, 4000, False, 1e9, 4),
+            ("1,500 identical candidates", 3000, 64, 300, False, 1e9, 512)):
+        c = (np.round(re_.standard_normal((8, N)) * 40) / 4).astype(np.float32)
+        if neg:
+            c[:] = np.float32(NEG) + np.float32(NEG)
+        d = (np.stack([re_.permutation(N) for _ in range(8)]) if ndst is None
+             else re_.integers(0, ndst, (8, N))).astype(np.int32)
+        a = re_.permutation(8 * N).reshape(8, N).astype(np.int32)
+        if ndst == 300:
+            c[:, :1500], d[:, :1500], a[:, :1500] = 500.0, 3, 7
+        args = [torch.as_tensor(v, device=dev) for v in (c, d, a, np.full(8, beam, np.float32))]
+        same = all(torch.equal(bits(o), bits(r_)) for mode in (0, nlat) for o, r_ in zip(
+            csel.recombine_topk(*args, kcap, mode), csel.recombine_topk_plain(*args, kcap, mode)))
+        torch.cuda.synchronize()
+        check(same, f"select edge case {name}: not bitwise equal to its twin")
+        edges.append(name)
+    print(f"select edge cases, both modes, U=8, bitwise equal to the twin: {'; '.join(edges)}")
 
     # the GSC kernel against its twin: U utterances of 8 ch x 1000 frames x
     # 129 bins, each with the DS weights and blocking matrix of its own source
@@ -581,11 +626,13 @@ def main() -> int:
     # the kernels' variants for inputs beyond the main path's, against their
     # twins (no timing): the Viterbi kernel's stride loop (S > 1,024) and
     # delta in device memory (S = 40,000); the GSC kernel with B read from
-    # device memory (200 channels); the select kernel's device-memory sort
-    # (kcap 9,000 > half a block) and two merge passes (kcap 64); the
-    # filterbank in three slabs (M = 2048), without a twiddle table (M =
-    # 32,768), and the synthesis with the frames' IDFT in device memory
-    # (M = 256 m = 8 r = 32, m r^2 = 8,192)
+    # device memory (200 channels); the select kernel with its sort buffer
+    # beyond a block's (kcap 9,000) and at 300,000 candidates (kcap 64); the
+    # fused kernel in three slabs (M = 2048), without a twiddle table (M =
+    # 32,768; the analysis's FFT in one shared buffer, its stages held in
+    # registers), and the synthesis with the frames' IDFT in device memory
+    # (M = 256 m = 8 r = 32, m r^2 = 8,192); the analysis with its buffers
+    # in device memory (M = 65,536) and at a prime M (127)
     for U, T_v, S_v in ((2, 50, 3000), (2, 40, 9000), (1, 20, 40000)):
         r = np.random.default_rng(S_v)
         llv = torch.as_tensor((r.standard_normal((U, T_v, S_v)) * 3).astype(np.float32),
@@ -630,6 +677,15 @@ def main() -> int:
                     cfb.analysis_beamform_plain(xs, h, ws, M, r_, T)),
             rel_err(cfb.synthesis(A, g, M, m, r_, c.L - c.D, xs.shape[-1]),
                     cfb.synthesis_plain(A, g, M, r_, c.L - c.D, xs.shape[-1])))
+    # the analysis's other routes: its buffers in device memory (M = 65,536)
+    # and a prime M (one direct DFT stage)
+    for M, m, r_, C, secs in ((65536, 2, 2, 1, 8.0), (127, 2, 1, 2, 0.5)):
+        c = FilterbankConfig(M=M, m=m, r=r_)
+        h = torch.as_tensor(rng.standard_normal(c.L).astype(np.float32) / 16, device=dev)
+        xs = signal(C, secs)
+        T = fb.num_frames(xs.shape[-1], c)
+        errs_x[f"analysis M={M} m={m} r={r_}"] = rel_err(cfb.analysis(xs, h, M, m, r_, T),
+                                                        cfb.analysis_plain(xs, h, M, r_, T))
     print("kernel variants beyond the main path's shapes: viterbi S = 3,000 / 9,000 / 40,000 "
           f"bitwise; gsc N = 200 rel err {err_g:.2e}; select N = 40,000 kcap 9,000 and N = "
           "300,000 kcap 64 bitwise; filterbank " + ", ".join(
@@ -1469,7 +1525,7 @@ def main() -> int:
                 "viterbi": "dsr_tpu/ops/pallas/viterbi.py:35",
                 "select_lattice": "dsr_tpu/ops/pallas/select.py:277",
                 "analysis_beamform_staged": "dsr_tpu/ops/pallas/filterbank.py:338"}
-    sources = {"analysis": "filterbank.cu", "analysis_beamform": "filterbank.cu",
+    sources = {"analysis": "analysis.cu", "analysis_beamform": "filterbank.cu",
                "synthesis": "filterbank.cu", "select": "select.cu", "gsc": "gsc.cu",
                "steering": "steering.cu", "viterbi": "viterbi.cu", "select_lattice": "select.cu",
                "analysis_beamform_staged": "filterbank.cu"}

@@ -28,6 +28,7 @@ NVCC_FLAGS = (
 GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
 # name -> (source, compiler)
 SOURCES = {
+    "analysis": (PACKAGE / "ops" / "cuda" / "csrc" / "analysis.cu", "nvcc"),
     "filterbank": (PACKAGE / "ops" / "cuda" / "csrc" / "filterbank.cu", "nvcc"),
     "select": (PACKAGE / "ops" / "cuda" / "csrc" / "select.cu", "nvcc"),
     "gsc": (PACKAGE / "ops" / "cuda" / "csrc" / "gsc.cu", "nvcc"),

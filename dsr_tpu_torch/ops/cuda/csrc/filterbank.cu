@@ -1,8 +1,9 @@
-// Oversampled DFT filterbank kernels for Hopper (sm_90a): analysis, fused
-// analysis + fixed-weight beamform, and synthesis.  Plain C interface,
-// loaded with ctypes by dsr_tpu_torch/ops/cuda/filterbank.py; each entry
-// point launches on the caller's stream, allocates nothing, and returns
-// cudaGetLastError() (or kNoFit: never for a valid config).
+// Oversampled DFT filterbank kernels for Hopper (sm_90a): fused analysis +
+// fixed-weight beamform, and synthesis.  (The unfused analysis is an FFT,
+// csrc/analysis.cu.)  Plain C interface, loaded with ctypes by
+// dsr_tpu_torch/ops/cuda/filterbank.py; each entry point launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError() (or
+// kNoFit: never for a valid config).
 //
 // Conventions (the same as dsr_tpu/ops/filterbank.py): M subbands, prototype
 // length L = m*M, hop D = M/r, K = M/2+1 bins, front pad P = L-D.  Frame t
@@ -17,7 +18,6 @@
 // TPU needed a D == 128 kernel and a general one.
 //
 // Replaces (dsr_tpu/ops/pallas/filterbank.py):
-//   analysis           <- _analysis_kernel_v5 and _analysis_kernel
 //   analysis_beamform  <- _analysis_bf_kernel, unstaged and over the staged
 //                         buffer bank (stage_for_beamform / _analysis_bf_staged)
 //   synthesis          <- _synthesis_kernel_v5 and _synthesis_kernel
@@ -66,8 +66,8 @@
 //
 // A config whose block does not fit shared memory that way (M = 512 at
 // r = 4, M >= 768, large m r^2) runs a second family of kernels, the
-// "slab" kernels below: the analysis takes its DFT sum over p in slabs of
-// pairs and reads the signal and prototype from device memory; the
+// "slab" kernels below: the fused analysis takes its DFT sum over p in
+// slabs of pairs and reads the signal and prototype from device memory; the
 // synthesis takes its IDFT sum over bins in slabs, with fewer residues per
 // block when needed; without room for the twiddle table (M above
 // ~20,000), each DFT entry is computed directly, with the same sincospi,
@@ -247,7 +247,7 @@ __device__ float nyquist_part(const float* uT, int M) {
   return s;
 }
 
-// Block set-up shared by both analysis kernels: twiddles -> DFT rows, the
+// Block set-up of the fused kernel: twiddles -> DFT rows, the
 // prototype, and the first channel's window, folded into uT.
 __device__ void analysis_setup(float* F, float* uT, float* hf_s, float* sig,
                                const float* __restrict__ hf, const float* __restrict__ x0,
@@ -292,53 +292,6 @@ __device__ void reduce_groups(float* red, float* a, float* ny, int nny, bool nyq
       ny[j] = s;
     }
   }
-}
-
-// grid (frame tiles, C, bin groups).  out: (C, T, K) complex.
-__global__ void __launch_bounds__(kThreadsA)
-analysis_kernel(const float* __restrict__ x, const float* __restrict__ hf,
-                float2* __restrict__ out, int S, int T, int M, int m, int D, int kpb) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = M / 2 + 1, FS = analysis_fs(kpb);
-  float* F = smem;
-  float* uT = F + (M / 2 + 1) * FS;
-  float* hf_s = smem + analysis_region0(M, kpb);
-  float* sig = hf_s + m * M;
-  const int t0 = blockIdx.x * kTF, c = blockIdx.y;
-  const int k0 = blockIdx.z * kpb, k1 = min(main_bins(M), k0 + kpb);
-  const bool nyq = (M % 2 == 0) && blockIdx.z == gridDim.z - 1;
-  const int tid = threadIdx.x, ps = tid / kTile, r = tid % kTile;
-  const int fp = r % 16, bo = r / 16;
-  const bool active = kBT * bo < kpb;
-
-  analysis_setup(F, uT, hf_s, sig, hf, x + static_cast<long long>(c) * S, S, M, m, D,
-                 t0, k0, k1, FS);
-  float a[kNA];
-  if (active) {
-    dft_tile(uT, F, M, FS, k0, fp, bo, ps, a);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kNA; ++j) a[j] = 0.f;
-  }
-  float ny[1] = {nyq ? nyquist_part(uT, M) : 0.f};
-  reduce_groups(smem, a, ny, 1, nyq);
-
-  float2* oc = out + static_cast<long long>(c) * T * K;
-  if (ps == 0 && active) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int t = t0 + 2 * fp + i;
-#pragma unroll
-      for (int j = 0; j < kBT; ++j) {
-        const int k = k0 + kBT * bo + j;
-        if (t < T && k < k1)
-          oc[static_cast<long long>(t) * K + k] =
-              make_float2(a[2 * kBT * i + 2 * j], a[2 * kBT * i + 2 * j + 1]);
-      }
-    }
-  }
-  if (nyq && tid < 32 && t0 + tid < T)
-    oc[static_cast<long long>(t0 + tid) * K + M / 2] = make_float2(ny[0], 0.f);
 }
 
 // The staged bank's buffer: x (B, C, S) at index *idx (device memory) or
@@ -767,37 +720,6 @@ struct SlabBlock {
       o[static_cast<long long>(t0 + tid) * K + M / 2] = make_float2(ny_re, ny_im);
   }
 };
-
-// analysis_kernel in slabs.  grid (frame tiles, C, bin groups).
-template <bool kTable>
-__global__ void __launch_bounds__(kThreadsA)
-analysis_slab_kernel(const float* __restrict__ x, const float* __restrict__ hf,
-                     float2* __restrict__ out, int S, int T, int M, int m, int D,
-                     SlabLayout lay) {
-  extern __shared__ __align__(16) float smem[];
-  SlabBlock blk(smem, lay, M, m, D);
-  const int c = blockIdx.y;
-  const int tid = threadIdx.x, ps = tid / kTile, r = tid % kTile;
-  const int fp = r % 16, bo = r / 16;
-  const bool active = kBT * bo < lay.kpb;
-  const float* xc = x + static_cast<long long>(c) * S;
-
-  if constexpr (kTable) fill_twiddles(blk.tw, M);
-  float a[kNA], ny = 0.f;
-#pragma unroll
-  for (int j = 0; j < kNA; ++j) a[j] = 0.f;
-  for (int sl = 0; sl < blk.nslabs; ++sl) {
-    __syncthreads();   // the twiddles are in place; the last slab's rows are read
-    blk.template build<kTable>(sl, lay.FS);
-    blk.fold(sl, xc, S, hf);
-    __syncthreads();
-    if (active) dft_slab(blk.uT, blk.F, M, lay.FS, blk.k0, fp, bo, ps, blk.ns(sl), sl == 0, a);
-    if (blk.nyq) ny += nyquist_slab(blk.uT, M, blk.pa(sl), blk.ns(sl), blk.rows(sl));
-  }
-  reduce_groups(smem, a, &ny, 1, blk.nyq);
-  blk.store(out + static_cast<long long>(c) * T * (M / 2 + 1), a, T, bo, fp,
-            ps == 0 && active, ny, 0.f);
-}
 
 // analysis_beamform_kernel in slabs: the slabs are the outer loop and the
 // channels the inner one (the sum is linear in both).  grid (frame tiles,
@@ -1235,30 +1157,6 @@ int launch_analysis_beamform(const float* x, const float* hf, const float2* w, f
 }  // namespace
 
 extern "C" {
-
-// x: (C, S) float32, hf: (L,) float32, out: (C, T, K) complex64.
-int dsr_fb_analysis(const float* x, const float* hf, float2* out, int C, int S, int T,
-                    int M, int m, int D, void* stream) {
-  int groups, kpb, slabs;
-  SlabLayout lay;
-  int rc = analysis_layout(M, m, D, &groups, &kpb, &slabs, &lay);
-  if (rc) return rc;
-  const dim3 grid((T + kTF - 1) / kTF, C, groups);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!slabs) {
-    const size_t smem = 4ull * analysis_smem_floats(M, m, D, kpb);
-    rc = set_smem(reinterpret_cast<const void*>(analysis_kernel), smem);
-    if (rc) return rc;
-    analysis_kernel<<<grid, kThreadsA, smem, st>>>(x, hf, out, S, T, M, m, D, kpb);
-  } else {
-    const size_t smem = 4ull * lay.total;
-    auto kernel = lay.use_tw ? analysis_slab_kernel<true> : analysis_slab_kernel<false>;
-    rc = set_smem(reinterpret_cast<const void*>(kernel), smem);
-    if (rc) return rc;
-    kernel<<<grid, kThreadsA, smem, st>>>(x, hf, out, S, T, M, m, D, lay);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
 
 // x: (C, S) float32, hf: (L,), w: (K, C) complex64, y: (T, K) complex64.
 int dsr_fb_analysis_beamform(const float* x, const float* hf, const float2* w, float2* y,

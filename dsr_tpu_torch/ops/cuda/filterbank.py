@@ -1,12 +1,15 @@
 """Filterbank kernels for Hopper, their plain PyTorch twins, and wrappers.
 
-Counterpart of `dsr_tpu/ops/pallas/filterbank.py`.  Three CUDA kernels in
-`csrc/filterbank.cu` (analysis, fused analysis + fixed-weight beamform,
-synthesis), each D-parametric, so one kernel serves every (M, m, r) where
-the TPU had a D == 128 kernel and a general one.  The source says what
-bounds each kernel on the card and how its design answers that.  The fused
-kernel also runs over a staged bank of B signals (`analysis_beamform_
-staged`), with the buffer's index an int or read from device memory.
+Counterpart of `dsr_tpu/ops/pallas/filterbank.py`.  Three CUDA kernels,
+each D-parametric, so one kernel serves every (M, m, r) where the TPU had
+a D == 128 kernel and a general one: the analysis, a factorised real FFT
+of each folded frame (`csrc/analysis.cu`: a mixed-radix Stockham FFT in
+shared memory, several frames a block at small M), and the fused analysis
++ fixed-weight beamform and the synthesis, direct DFTs
+(`csrc/filterbank.cu`).  The sources say what bounds each kernel on the
+card and how its design answers that.  The fused kernel also runs over a
+staged bank of B signals (`analysis_beamform_staged`), with the buffer's
+index an int or read from device memory.
 
 Each wrapper dispatches on the device of the tensor it is given: on a CPU
 tensor it runs the plain version (torch.fft, `index_add_`, einsum), on a
@@ -83,17 +86,26 @@ def synthesis_plain(A: torch.Tensor, gf: torch.Tensor, M: int, r: int, start: in
 
 
 @functools.lru_cache(maxsize=None)
+def _analysis_kernel() -> ctypes.CDLL:
+    lib = build.library("analysis")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dsr_fb_analysis_scratch.argtypes = [i, i, i, i, i, p]
+    lib.dsr_fb_analysis.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    for fn in (lib.dsr_fb_analysis_scratch, lib.dsr_fb_analysis):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _kernels() -> ctypes.CDLL:
     lib = build.library("filterbank")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dsr_fb_analysis.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_analysis_beamform_staged.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_synthesis_scratch.argtypes = [i, i, i, i, ll, i, p]
     lib.dsr_fb_synthesis.argtypes = [p, p, p, p, i, i, i, i, i, ll, i, p]
-    for fn in (lib.dsr_fb_analysis, lib.dsr_fb_analysis_beamform,
-               lib.dsr_fb_analysis_beamform_staged, lib.dsr_fb_synthesis_scratch,
-               lib.dsr_fb_synthesis):
+    for fn in (lib.dsr_fb_analysis_beamform, lib.dsr_fb_analysis_beamform_staged,
+               lib.dsr_fb_synthesis_scratch, lib.dsr_fb_synthesis):
         fn.restype = ctypes.c_int
     return lib
 
@@ -117,8 +129,17 @@ def analysis(x: torch.Tensor, hf: torch.Tensor, M: int, m: int, r: int, T: int) 
     out = torch.empty((C, T, K), dtype=torch.complex64, device=x.device)
     if out.numel() == 0:
         return out
-    rc = _kernels().dsr_fb_analysis(x.data_ptr(), hf.data_ptr(), out.data_ptr(),
-                                    C, S, T, M, m, D, stream())
+    lib = _analysis_kernel()
+    # device memory for the FFTs only when a block cannot hold one (M above
+    # 32,768); none otherwise
+    nbytes = ctypes.c_longlong()
+    rc = lib.dsr_fb_analysis_scratch(C, T, M, m, D, ctypes.byref(nbytes))
+    _raise_on(rc, "analysis", M, m, r)
+    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=x.device) if nbytes.value
+               else None)
+    rc = lib.dsr_fb_analysis(x.data_ptr(), hf.data_ptr(), out.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(), C, S, T, M, m, D,
+                             stream())
     _raise_on(rc, "analysis", M, m, r)
     launches["analysis"] += 1
     return out

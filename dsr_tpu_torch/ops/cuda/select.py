@@ -17,7 +17,13 @@ the `select_mode="xla"` branch of `_make_step`):
 Slots whose score is not above NEG/2 carry dst 0 and arc -1 (their score
 stays as computed: NEG, or a kept value that low), as the Pallas kernel
 writes them.  The CUDA kernel (`csrc/select.cu`) computes this function
-exactly, so unlike the TPU kernel it has no spill certificate.
+exactly, so unlike the TPU kernel it has no spill certificate, and it
+sorts no pool: it recombines through a hash table of destinations
+(atomicMin of each candidate's (score, arc) word), finds the top kcap of
+the winners by radix select and sorts only those (one launch, one block
+an utterance, the table in shared memory up to 12,288 candidates; larger
+pools take two more grid-wide launches first, the table in device
+memory).
 
 Lattice mode (`nlat > 0`, the XLA path's `topk_decoder.py:233-248`): each
 kept slot also gets its state's top `nlat` incoming arcs, the candidates
@@ -25,16 +31,22 @@ at positions idx[k] + j (j < nlat) of step 1's order, where idx[k] is the
 start of slot k's dst run; an alternate is valid while it stays inside
 the run and the pool, the slot is alive, and its raw score beats max(val)
 - beam (the threshold of step 3).  Column 0 is the winner itself; invalid
-alternates are arc -1 and score NEG.  The result is the 1-best triple,
-unchanged, plus (U, kcap, nlat) score and arc planes; dst stays (U, kcap)
-(the Pallas wrapper repeated it nlat times).  Any nlat >= 1 is taken, as
-the XLA path takes it (the TPU kernel took 2, 4 and 8).
+alternates are arc -1 and score NEG.  The run is sorted by score, so the
+valid alternates are the top nlat of the dst's candidates above the
+threshold, in (score desc, arc asc) order: the kernel buckets the live
+slots' candidates above it and ranks each bucket.  The result is the
+1-best triple, unchanged, plus (U, kcap, nlat) score and arc planes; dst
+stays (U, kcap) (the Pallas wrapper repeated it nlat times).  Any nlat >=
+1 is taken, as the XLA path takes it (the TPU kernel took 2, 4 and 8).
 
 `recombine_topk` dispatches on the device of its tensors: on CPU tensors
 it runs the plain twin (`torch.sort`), on CUDA tensors it launches the
 kernel and adds one to `launches["select"]` (1-best) or
-`launches["select_lattice"]` per launch, or raises.  The kernel takes arc
-ids in [0, 2^31) and dst ids in [0, 2^31 - 1).
+`launches["select_lattice"]` per call, or raises.  The kernel takes arc
+ids in [0, 2^31) and dst ids in [0, 2^31 - 1); candidates that tie on
+dst, score and arc with one score -0 and the other +0 are the one place
+where it may differ from the twin (the twin keeps the first, the kernel
+the +0).
 """
 
 from __future__ import annotations
@@ -48,11 +60,6 @@ from dsr_tpu_torch.ops.cuda import build
 from dsr_tpu_torch.ops.cuda.launch import check, on_cuda, stream
 
 NEG = -1e30
-# Candidates one thread block sorts in shared memory (a power of two; 13
-# bytes each).  Pools above it take several launches: per-chunk top-kcap
-# lists, merge passes over groups of CHUNK // kcap lists while the lists
-# exceed one block, then the final pass over the last lists.
-CHUNK = 16384
 
 # Kernel launches since the last `reset_launches()`.
 launches = {"select": 0, "select_lattice": 0}
@@ -111,59 +118,40 @@ def recombine_topk_plain(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Ten
 def _kernel() -> ctypes.CDLL:
     lib = build.library("select")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dsr_select_pass.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, p, p]
-    lib.dsr_select_pass.restype = ctypes.c_int
-    lib.dsr_select_lattice.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p]
-    lib.dsr_select_lattice.restype = ctypes.c_int
+    lib.dsr_select_scratch.argtypes = [i, i, i, i, p]
+    lib.dsr_select_scratch.restype = ctypes.c_int
+    lib.dsr_select.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p, p]
+    lib.dsr_select.restype = ctypes.c_int
     return lib
 
 
-def _pass(lists, beam, dup_in, group, chunk, kcap, partial, gscratch=None):
-    """One launch over (score, dst, arc) lists (U, n), in ceil(n / chunk)
-    blocks per utterance → (scores, dst, arc (U, blocks·kcap), flags
-    (U, blocks) or None)."""
-    cand, fdst, arcs = lists
-    U, n = cand.shape
-    blocks = -(-n // chunk) if partial else 1
-    dev = cand.device
-    out = (torch.empty((U, blocks * kcap), dtype=torch.float32, device=dev),
-           torch.empty((U, blocks * kcap), dtype=torch.int32, device=dev),
-           torch.empty((U, blocks * kcap), dtype=torch.int32, device=dev))
-    flags = torch.empty((U, blocks), dtype=torch.int32, device=dev) if partial else None
-    rc = _kernel().dsr_select_pass(
-        cand.data_ptr(), fdst.data_ptr(), arcs.data_ptr(), beam.data_ptr(),
-        None if dup_in is None else dup_in.data_ptr(), 0 if dup_in is None else dup_in.shape[1],
-        group, U, n, chunk, kcap, int(partial), *(t.data_ptr() for t in out),
-        None if flags is None else flags.data_ptr(),
-        None if gscratch is None else gscratch.data_ptr(), stream())
-    if rc != 0:
-        raise RuntimeError(f"select kernel failed to launch: CUDA error {rc}")
-    launches["select"] += 1
-    return out, flags
-
-
-def _lattice(cand, fdst, arcs, beam, kcap, nlat):
-    """The lattice mode: one launch, one block per utterance (module
-    docstring of csrc/select.cu)."""
+def _launch(cand, fdst, arcs, beam, kcap, nlat):
+    """The kernel over (U, N) candidates, with the device scratch it asks
+    for (csrc/select.cu)."""
     U, N = cand.shape
     dev = cand.device
-    cap = 1 << max(5, (N - 1).bit_length())
-    lscratch = torch.empty(3 * U * cap, dtype=torch.int32, device=dev)
-    gscratch = (torch.empty(U * 13 * cap, dtype=torch.uint8, device=dev) if N > CHUNK
-                else None)
-    out = (torch.empty((U, kcap), dtype=torch.float32, device=dev),
-           torch.empty((U, kcap), dtype=torch.int32, device=dev),
-           torch.empty((U, kcap), dtype=torch.int32, device=dev),
-           torch.empty((U, kcap, nlat), dtype=torch.float32, device=dev),
-           torch.empty((U, kcap, nlat), dtype=torch.int32, device=dev))
-    rc = _kernel().dsr_select_lattice(
-        cand.data_ptr(), fdst.data_ptr(), arcs.data_ptr(), beam.data_ptr(), U, N, kcap, nlat,
-        *(t.data_ptr() for t in out), lscratch.data_ptr(),
-        None if gscratch is None else gscratch.data_ptr(), stream())
+    lib = _kernel()
+    nbytes = ctypes.c_longlong()
+    rc = lib.dsr_select_scratch(U, N, kcap, nlat, ctypes.byref(nbytes))
     if rc != 0:
-        raise RuntimeError(f"select kernel (lattice mode) failed to launch: CUDA error {rc}")
-    launches["select_lattice"] += 1
-    return out
+        raise ValueError(f"recombine_topk: the kernel does not take U={U} N={N} kcap={kcap} "
+                         f"nlat={nlat} (code {rc})")
+    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=dev) if nbytes.value
+               else None)
+    out = [torch.empty((U, kcap), dtype=torch.float32, device=dev),
+           torch.empty((U, kcap), dtype=torch.int32, device=dev),
+           torch.empty((U, kcap), dtype=torch.int32, device=dev)]
+    if nlat:
+        out += [torch.empty((U, kcap, nlat), dtype=torch.float32, device=dev),
+                torch.empty((U, kcap, nlat), dtype=torch.int32, device=dev)]
+    alt = [t.data_ptr() for t in out[3:]] or [None, None]
+    rc = lib.dsr_select(cand.data_ptr(), fdst.data_ptr(), arcs.data_ptr(), beam.data_ptr(),
+                        U, N, kcap, nlat, *(t.data_ptr() for t in out[:3]), *alt,
+                        None if scratch is None else scratch.data_ptr(), stream())
+    if rc != 0:
+        raise RuntimeError(f"select kernel failed to launch: CUDA error {rc}")
+    launches["select_lattice" if nlat else "select"] += 1
+    return tuple(out)
 
 
 def recombine_topk(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Tensor, beam,
@@ -185,20 +173,4 @@ def recombine_topk(cand: torch.Tensor, fdst: torch.Tensor, arcs: torch.Tensor, b
     check("recombine_topk fdst", fdst, torch.int32, (U, N))
     check("recombine_topk arcs", arcs, torch.int32, (U, N))
     check("recombine_topk beam", beam, torch.float32, (U,))
-    if nlat:
-        return _lattice(cand, fdst, arcs, beam, kcap, nlat)
-    lists, flags = (cand, fdst, arcs), None
-    if N > CHUNK and 2 * kcap > CHUNK:
-        # lists of more than half a block cannot shrink by merging: one
-        # block per utterance sorts all N candidates in device memory
-        cap = 1 << max(5, (N - 1).bit_length())
-        scratch = torch.empty(U * 13 * cap, dtype=torch.uint8, device=cand.device)
-        return _pass(lists, beam, None, 0, N, kcap, False, scratch)[0]
-    if N > CHUNK:
-        lists, flags = _pass(lists, beam, None, 0, CHUNK, kcap, True)
-        group = CHUNK // kcap
-        while lists[0].shape[1] > CHUNK:
-            lists, flags = _pass(lists, beam, flags, group, group * kcap, kcap, True)
-    n = lists[0].shape[1]
-    return _pass(lists, beam, flags, 0 if flags is None else flags.shape[1], n, kcap,
-                 False)[0]
+    return _launch(cand, fdst, arcs, beam, kcap, nlat)

@@ -1,6 +1,8 @@
 """The filterbank kernel wrappers on the CPU:
 the fused analysis+beamform's plain twin against the Pallas fused kernel
-(interpret mode), CPU tensors running the plain twins without counting a
+(interpret mode), the analysis kernel's FFT plan (`ops/cuda/csrc/
+analysis.cu`) transcribed to NumPy against the plain twin and the JAX
+package's analysis, CPU tensors running the plain twins without counting a
 launch, and other devices refused.  Tolerance: 1e-5 of the largest
 magnitude, as in tests/test_torch_filterbank.py.
 """
@@ -10,7 +12,9 @@ import pytest
 import torch
 
 from _torch_parity import SR, filterbank_case, geometry, rel
+from dsr_tpu.config import FilterbankConfig as JFilterbankConfig
 from dsr_tpu.ops import beamforming as jbf
+from dsr_tpu.ops import filterbank as jfb
 from dsr_tpu.ops.pallas import filterbank as pfb
 from dsr_tpu_torch import convert
 from dsr_tpu_torch.config import FilterbankConfig
@@ -31,6 +35,96 @@ def test_fused_analysis_beamform_matches_pallas():
     Y = tfb.analysis_beamform(torch.as_tensor(x), convert.beamformer_weights(w), cfg)
     assert Y.shape == (tfb.num_frames(40960, cfg), cfg.num_bins)
     assert rel(Y.numpy(), Y_ref) < 1e-5
+
+
+# ------------------------------------------ analysis.cu's FFT plan, in NumPy
+
+
+def _radices(n):
+    """make_plan's stages: radix 4 while 4 divides, then 2, then 3s, then
+    the other primes in increasing order."""
+    out = []
+    while n % 4 == 0:
+        out, n = out + [4], n // 4
+    if n % 2 == 0:
+        out, n = out + [2], n // 2
+    q = 3
+    while n > 1:
+        while n % q == 0:
+            out, n = out + [q], n // q
+        q += 2
+    return out
+
+
+def _twiddles(M):
+    """The kernel's table e^{-2 pi i j / M}, j < M, with sincospi's exact
+    zeros (cos at M/4 and 3M/4, sin at 0 and M/2)."""
+    j = np.arange(M)
+    c, s = np.cos(2 * np.pi * j / M), np.sin(2 * np.pi * j / M)
+    c[(4 * j == M) | (4 * j == 3 * M)] = 0.0
+    s[(j == 0) | (2 * j == M)] = 0.0
+    return (c - 1j * s).astype(np.complex64)
+
+
+def _analysis_fft_in_numpy(x, hf, M, m, D, T):
+    """analysis_fft_kernel: fold, pack two reals a point (even M), the
+    mixed-radix Stockham stages (stage of radix R, Ns the product of the
+    earlier radices: element j + r n/R, twiddled by W_n^{(j mod Ns) r
+    n/(Ns R)}, goes through a length-R DFT to (j div Ns) Ns R + (j mod Ns)
+    + k Ns), then the even-M split into M/2 + 1 bins."""
+    C, S = x.shape
+    P = m * M - D
+    g = (np.arange(T)[:, None] * D - P + np.arange(m * M)[None, :])
+    frames = np.where((g >= 0) & (g < S), x[:, np.clip(g, 0, S - 1)], 0.0)
+    u = (frames * hf).reshape(C, T, m, M).sum(2).astype(np.float32)
+    n = M // 2 if M % 2 == 0 else M
+    s = M // n
+    tw = _twiddles(M)
+    z = (u[..., 0::2] + 1j * u[..., 1::2] if s == 2 else u).astype(np.complex64)
+    Ns = 1
+    for R in _radices(n):
+        nR = n // R
+        j = np.arange(nR)
+        jm = j % Ns
+        v = [z[..., j + r * nR] * tw[s * jm * r * (n // (Ns * R))] for r in range(R)]
+        out = np.empty_like(z)
+        for k in range(R):
+            out[..., (j // Ns) * Ns * R + jm + k * Ns] = sum(
+                v[r] * tw[s * ((r * k) % R) * nR] for r in range(R))
+        z, Ns = out, Ns * R
+    if s == 1:
+        return z[..., :M // 2 + 1]
+    k = np.arange(1, n)
+    zk, zc = z[..., k], np.conj(z[..., n - k])
+    A = np.empty((C, T, n + 1), np.complex64)
+    A[..., 0] = z[..., 0].real + z[..., 0].imag
+    A[..., n] = z[..., 0].real - z[..., 0].imag
+    A[..., k] = (zk + zc) / 2 + tw[k] * (-1j * (zk - zc) / 2)
+    return A
+
+
+def test_fft_plan_in_numpy_matches_plain_and_jax():
+    """The analysis kernel's FFT plan, transcribed to NumPy: against the
+    plain twin at M = 96, 256, 512, 768, 1024, 2048 (radix-4, -2 and -3
+    stages) and the prime M = 127 (one direct stage) with random
+    prototypes, and against the JAX package's analysis at the five shipped
+    configs."""
+    rng = np.random.default_rng(21)
+    assert _radices(384) == [4, 4, 4, 2, 3] and _radices(127) == [127]
+    for M, r in ((96, 2), (256, 2), (512, 4), (768, 1), (1024, 2), (2048, 2), (127, 1)):
+        m, D = 2, M // r
+        hf = rng.standard_normal(m * M).astype(np.float32) / 16
+        x = rng.standard_normal((2, 3000)).astype(np.float32)
+        T = tfb.num_frames(3000, FilterbankConfig(M=M, m=m, r=r))
+        ref = cfb.analysis_plain(torch.as_tensor(x), torch.as_tensor(hf), M, r, T).numpy()
+        assert rel(_analysis_fft_in_numpy(x, hf, M, m, D, T), ref) < 1e-5, M
+    for M, m, r, j in ((64, 2, 2, 2), (64, 4, 1, 6), (64, 4, 2, 2), (96, 2, 2, 2), (256, 4, 2, 2)):
+        jcfg = JFilterbankConfig(M=M, m=m, r=r, joint_iters=j)
+        hf = np.asarray(jfb.get_prototypes(jcfg)[0], np.float32)
+        x = rng.standard_normal((3, 4000)).astype(np.float32)
+        ref = np.asarray(jfb.analysis(x, jcfg))
+        got = _analysis_fft_in_numpy(x, hf, M, m, M // r, ref.shape[1])
+        assert rel(got, ref) < 1e-5, (M, m, r)
 
 
 def test_cpu_tensors_run_plain_and_leave_launch_counters_at_zero():
