@@ -14,16 +14,19 @@ Phases, each of which fails the run loudly:
      40 / 500 / 1000, two chunks threaded through wa0 == one pass) and at
      2, 16 and 64 channels; the steering kernel at 8 and 16 ch x 1000
      frames, static and per-frame delays; the banded Viterbi kernel at the
-     force-align shape and a batch, bitwise; the shapes that raised before:
+     force-align shape and a batch, bitwise (and at S = 1, 31, 33, 1,024
+     and 1,025 states and a single frame); the shapes that raised before:
      the select kernel at 269,312 candidates with kcap 1024 (bitwise) and
      the filterbank kernels at four configs above the shared-memory opt-in,
      the analysis also at 8 ch x 1 s of three of them, each against
      torch.stft; the select kernel's edge cases (a beam of 1e31 over NEG +
      NEG, a single dst, all dsts distinct, kcap above N, identical
-     candidates) in both modes, bitwise; the analysis at M = 65,536 and a
-     prime M; and, untimed, each kernel's
-     variants for inputs beyond those (delta, B, the select table or the
-     FFT or the DFT tables in device memory or in slabs);
+     candidates) in both modes, bitwise; the analysis and the fused
+     kernel (unstaged and staged) at M = 65,536 and a prime M, the fused
+     kernel also at 7, 63 and 64 channels (not multiples of its cluster's
+     split); and, untimed, each kernel's variants for inputs beyond those
+     (delta, B, the select table or the FFT or the IDFT tables in device
+     memory or in slabs);
   3. the front end's main path: `DsrPipeline.process` (MVDR) on 4 requests
      of 8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
      beamform (fused analysis+beamform -> synthesis) at 64 ch x 8 s; the
@@ -346,11 +349,11 @@ def main() -> int:
               + " / ".join(f"{e:.2e}" for e in errs))
         check(max(errs) <= TOL, f"kernels at M={c.M} m={c.m} r={c.r}")
 
-    # configs whose whole-block layouts exceed the card's shared-memory
-    # opt-in, so the fused kernel takes its DFT in slabs of pairs and the
-    # synthesis its IDFT in slabs of bins (the analysis's FFT takes them as
-    # any other); random prototypes as tests/_torch_parity.py's
-    # filterbank_case makes them; 4 ch x 1 s, each kernel timed
+    # configs whose whole-block synthesis exceeds the card's shared-memory
+    # opt-in, so it takes its IDFT in slabs of bins (the FFTs of the
+    # analysis and the fused kernel take them as any other); random
+    # prototypes as tests/_torch_parity.py's filterbank_case makes them;
+    # 4 ch x 1 s, each kernel timed
     for M, m, r in ((512, 4, 4), (1024, 4, 2), (768, 4, 1), (768, 4, 2)):
         c = FilterbankConfig(M=M, m=m, r=r)
         if (M, r) != (768, 2):   # the analysis also at 8 ch x 1 s, its own inputs
@@ -611,12 +614,18 @@ def main() -> int:
         # ll read and bp (uint8) written per frame and state; the weights read
         # and delta written per state; 4 operations per frame and state
         b_ms, b_by = bound(U * (T_v * S_v * (4 + 1) + 4 * S_v * 4), 4 * U * T_v * S_v)
-        chain_ms = T_v * 100 / 1.98e9 * 1e3
+        # the lane kernel's dependent chain a frame, estimated from its
+        # instructions: the ll load from shared memory (~30 cycles), the
+        # shuffle (~25), then for the lane's first state an add, a compare,
+        # a select and an add (~4 each); with more than one warp (S > 128)
+        # also the boundary delta's store, the block barrier and its load
+        # (~60): ~70 cycles a frame at S <= 128, ~130 above
+        chain_ms = T_v * (70 if S_v <= 128 else 130) / 1.98e9 * 1e3
         print(f"viterbi U={U} T={T_v} S={S_v}: bp planes and delta bitwise equal to the twin "
               f"{same}; kernel {ms:.4f} ms ({ms / T_v * 1e3:.3f} us per frame)  plain "
               f"{plain_ms:.4f} ms  library n/a  bound {b_ms:.5f} ms ({b_by}); dependent-chain "
-              f"floor estimated at {chain_ms:.4f} ms (~100 cycles per frame at 1,980 MHz, "
-              f"not measured)  [{smi}]")
+              f"floor estimated at {chain_ms:.4f} ms (~{70 if S_v <= 128 else 130} cycles a frame "
+              f"at 1,980 MHz, not measured)  [{smi}]")
         check(same, f"viterbi U={U} T={T_v} S={S_v}: not bitwise equal to its twin")
         if U == 1:   # the force-align path's shape
             record["viterbi"] = dict(max_abs_err=float((dl - dl_p).abs().max()), rel_err=0.0,
@@ -624,16 +633,19 @@ def main() -> int:
                                      library_ms=None)
 
     # the kernels' variants for inputs beyond the main path's, against their
-    # twins (no timing): the Viterbi kernel's stride loop (S > 1,024) and
-    # delta in device memory (S = 40,000); the GSC kernel with B read from
-    # device memory (200 channels); the select kernel with its sort buffer
-    # beyond a block's (kcap 9,000) and at 300,000 candidates (kcap 64); the
-    # fused kernel in three slabs (M = 2048), without a twiddle table (M =
-    # 32,768; the analysis's FFT in one shared buffer, its stages held in
-    # registers), and the synthesis with the frames' IDFT in device memory
-    # (M = 256 m = 8 r = 32, m r^2 = 8,192); the analysis with its buffers
-    # in device memory (M = 65,536) and at a prime M (127)
-    for U, T_v, S_v in ((2, 50, 3000), (2, 40, 9000), (1, 20, 40000)):
+    # twins (no timing): the Viterbi lane kernel at one state, one warp's
+    # edges (31, 33 states) and the most warps (1,024), a single frame, and
+    # its stride loop (S > 1,024) with delta in device memory (S = 40,000);
+    # the GSC kernel with B read from device memory (200 channels); the
+    # select kernel with its sort buffer beyond a block's (kcap 9,000) and at
+    # 300,000 candidates (kcap 64); the FFTs of the analysis and the fused
+    # kernel a block a frame (M = 2048), in one shared buffer with their
+    # stages held in registers and no twiddle table (M = 32,768), with their
+    # buffers in device memory (M = 65,536) and at a prime M (127), and the
+    # synthesis with the frames' IDFT in device memory (M = 256 m = 8 r = 32,
+    # m r^2 = 8,192)
+    for U, T_v, S_v in ((3, 70, 1), (2, 70, 31), (2, 70, 33), (2, 70, 1024), (2, 1, 36),
+                        (2, 1, 512), (2, 30, 1025), (2, 50, 3000), (2, 40, 9000), (1, 20, 40000)):
         r = np.random.default_rng(S_v)
         llv = torch.as_tensor((r.standard_normal((U, T_v, S_v)) * 3).astype(np.float32),
                               device=dev)
@@ -644,6 +656,23 @@ def main() -> int:
                                                               cvit.banded_viterbi_plain))
         check(torch.equal(bp, bp_p) and torch.equal(bits(dl), bits(dl_p)),
               f"viterbi S={S_v}: not bitwise equal to its twin")
+    # ll 1 to 3 floats past a 16-byte boundary inside a NaN-filled buffer: the
+    # copies' ragged ends at the tensor's first and last floats
+    for U, T_v, S_v in ((1, 186, 36), (3, 70, 1), (2, 1, 33)):
+        r = np.random.default_rng(S_v + 1)
+        n = U * T_v * S_v
+        llh = torch.as_tensor((r.standard_normal((U, T_v, S_v)) * 3).astype(np.float32))
+        wsv, wav = (torch.as_tensor(np.log(r.uniform(lo, hi, S_v)).astype(np.float32), device=dev)
+                    for lo, hi in ((0.3, 0.9), (0.1, 0.7)))
+        wav[0] = NEG
+        bp_p, dl_p = cvit.banded_viterbi_plain(llh.to(dev), wsv, wav)
+        for off in (1, 2, 3):
+            buf = torch.full((n + 8,), float("nan"), device=dev)
+            llv = buf[off:off + n].view(U, T_v, S_v)
+            llv.copy_(llh)
+            bp, dl = cvit.banded_viterbi(llv, wsv, wav)
+            check(torch.equal(bp, bp_p) and torch.equal(bits(dl), bits(dl_p)),
+                  f"viterbi S={S_v} ll at offset {off}: not bitwise equal to its twin")
     r = np.random.default_rng(7)
     POS200 = np.asarray(ArrayGeometry.circular(200, 0.30).positions)
     X = torch.view_as_complex(torch.as_tensor(
@@ -677,18 +706,33 @@ def main() -> int:
                     cfb.analysis_beamform_plain(xs, h, ws, M, r_, T)),
             rel_err(cfb.synthesis(A, g, M, m, r_, c.L - c.D, xs.shape[-1]),
                     cfb.synthesis_plain(A, g, M, r_, c.L - c.D, xs.shape[-1])))
-    # the analysis's other routes: its buffers in device memory (M = 65,536)
-    # and a prime M (one direct DFT stage)
-    for M, m, r_, C, secs in ((65536, 2, 2, 1, 8.0), (127, 2, 1, 2, 0.5)):
+    # the FFTs' other routes: buffers in device memory (M = 65,536) and a
+    # prime M (one direct DFT stage); the fused kernel there too, unstaged and
+    # over a staged bank of 2 (bitwise equal), at 7, 63 and 64 channels
+    for M, m, r_, C, secs in ((65536, 2, 2, 1, 8.0), (65536, 2, 2, 7, 2.0), (127, 2, 1, 2, 0.5),
+                              (127, 2, 1, 7, 0.5), (127, 2, 1, 63, 0.5), (256, 4, 2, 7, 1.0),
+                              (256, 4, 2, 63, 1.0)):
         c = FilterbankConfig(M=M, m=m, r=r_)
         h = torch.as_tensor(rng.standard_normal(c.L).astype(np.float32) / 16, device=dev)
         xs = signal(C, secs)
         T = fb.num_frames(xs.shape[-1], c)
-        errs_x[f"analysis M={M} m={m} r={r_}"] = rel_err(cfb.analysis(xs, h, M, m, r_, T),
-                                                        cfb.analysis_plain(xs, h, M, r_, T))
-    print("kernel variants beyond the main path's shapes: viterbi S = 3,000 / 9,000 / 40,000 "
-          f"bitwise; gsc N = 200 rel err {err_g:.2e}; select N = 40,000 kcap 9,000 and N = "
-          "300,000 kcap 64 bitwise; filterbank " + ", ".join(
+        if C <= 2:
+            errs_x[f"analysis M={M} m={m} r={r_}"] = rel_err(cfb.analysis(xs, h, M, m, r_, T),
+                                                            cfb.analysis_plain(xs, h, M, r_, T))
+        if C > 1:
+            ws = torch.view_as_complex(torch.as_tensor(
+                rng.standard_normal((c.num_bins, C, 2)).astype(np.float32), device=dev)).contiguous()
+            yf = cfb.analysis_beamform(xs, h, ws, M, m, r_, T)
+            bank2 = torch.stack([xs.flip(0), xs]).contiguous()
+            same = torch.equal(cfb.analysis_beamform_staged(bank2, torch.tensor(
+                1, dtype=torch.int32, device=dev), h, ws, M, m, r_, T), yf)
+            check(same, f"fused M={M} C={C}: the staged kernel differs from the unstaged one")
+            errs_x[f"analysis_beamform M={M} m={m} r={r_} {C} ch (staged bitwise)"] = rel_err(
+                yf, cfb.analysis_beamform_plain(xs, h, ws, M, r_, T))
+    print("kernel variants beyond the main path's shapes: viterbi S = 1 / 31 / 33 / 1,024 / "
+          f"1,025 / 3,000 / 9,000 / 40,000, T = 1 and ll 1-3 floats past a 16-byte boundary "
+          f"bitwise; gsc N = 200 rel err {err_g:.2e}; "
+          "select N = 40,000 kcap 9,000 and N = 300,000 kcap 64 bitwise; filterbank " + ", ".join(
               f"{k} {e:.2e}" for k, e in errs_x.items()) + f" (bound {TOL:.0e})")
     check(max(errs_x.values()) <= TOL, "filterbank kernels beyond the main path's configs")
 
@@ -1525,10 +1569,10 @@ def main() -> int:
                 "viterbi": "dsr_tpu/ops/pallas/viterbi.py:35",
                 "select_lattice": "dsr_tpu/ops/pallas/select.py:277",
                 "analysis_beamform_staged": "dsr_tpu/ops/pallas/filterbank.py:338"}
-    sources = {"analysis": "analysis.cu", "analysis_beamform": "filterbank.cu",
+    sources = {"analysis": "analysis.cu", "analysis_beamform": "analysis.cu",
                "synthesis": "filterbank.cu", "select": "select.cu", "gsc": "gsc.cu",
                "steering": "steering.cu", "viterbi": "viterbi.cu", "select_lattice": "select.cu",
-               "analysis_beamform_staged": "filterbank.cu"}
+               "analysis_beamform_staged": "analysis.cu"}
     for name, source in sources.items():
         r = record[name]
         kernels.append({"name": name, "route": "cuda",

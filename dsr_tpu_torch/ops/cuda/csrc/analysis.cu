@@ -1,11 +1,15 @@
 // Oversampled DFT filterbank analysis for Hopper (sm_90a) as a factorised
-// real FFT.  Plain C interface, loaded with ctypes by
-// dsr_tpu_torch/ops/cuda/filterbank.py; the entry point launches on the
-// caller's stream, allocates nothing, and returns cudaGetLastError() (or
-// kNoFit: never for a valid config).
+// real FFT, alone and fused with a fixed-weight beamform.  Plain C
+// interface, loaded with ctypes by dsr_tpu_torch/ops/cuda/filterbank.py;
+// each entry point launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError() (or kNoFit: never for a valid config).
 //
-// Replaces dsr_tpu/ops/pallas/filterbank.py:188 _analysis_kernel_v5 and :83
-// _analysis_kernel (one kernel for every M, m and D).
+// Replaces (dsr_tpu/ops/pallas/filterbank.py):
+//   analysis           <- :188 _analysis_kernel_v5 and :83 _analysis_kernel
+//                         (one kernel for every M, m and D)
+//   analysis_beamform  <- :338 _analysis_bf_kernel, unstaged and over the
+//                         staged buffer bank (stage_for_beamform /
+//                         _analysis_bf_staged)
 //
 // The function (the conventions of dsr_tpu/ops/filterbank.py): M subbands,
 // prototype length L = m*M, hop D, K = M/2+1 bins, front pad P = L-D.
@@ -55,9 +59,51 @@
 // into shared memory with cp.async (every load in flight at once) when
 // they fit; otherwise, and in the other layouts, the fold reads them from
 // device memory.
+//
+// The fused analysis + beamform, y[t, k] = sum_c conj(w[k, c]) A_c[t, k]
+// (w (K, C), y (T, K)), runs the same fold, FFT and split per channel and
+// sums the weighted bins; the per-channel spectra are never stored.  Its
+// bound is bytes (the C S floats of signal, 32.8 MB at the main path's 64
+// ch x 8 s: 0.0101 ms at 3.35 TB/s), but it does C T FFTs, and measured on
+// the card it is bound by instruction issue (an SM issuing ~3.4
+// instructions a cycle at 4 blocks an SM); its design cuts instructions a
+// point:
+//   - a tile of F frames (F n <= 1024, the analysis's layout) is the work
+//     of a thread-block cluster of Q blocks (Q = 8 at the main path: 127
+//     tiles would not fill 132 SMs), each rank summing its share of the
+//     channels into registers; the ranks' partial tiles are summed through
+//     distributed shared memory in rank order, a fixed order, so the result
+//     is deterministic with no atomics and no second launch;
+//   - for m = 4 (the main path's) the fold keeps the prototype's taps of its
+//     four samples in registers and loads each window vector once for the m
+//     frames that share it
+//     (fold_slide; 1.8 KB of shared memory a frame at the main path, where
+//     the analysis's fold reads 8 KB), the next channel's window arriving
+//     by cp.async while this one is transformed;
+//   - the plan's stages are radix 8 then 4s (make_plan(M, pl, 8)), in
+//     buffers padded by one point every 16 (at<true>: the Stockham
+//     scatter otherwise puts a stage's stores on one bank pair); at the
+//     main path's M = 256 (n = 128) the stages are compiled with constant
+//     radices and strides (stages_pow2: a channel's stages ~3,000 -> ~1,700
+//     cycles, measured on the card; other sizes run the runtime plan);
+//   - the split takes an item (bins k and n - k) at a time from Z[k],
+//     Z[n - k] and one twiddle, and the weights come from a slice of w
+//     transposed into shared memory.
+// A block per frame for larger n (its sums in its own row of y), as the
+// analysis's layouts.  The staged bank: the TPU kernel read a (B, C*rows,
+// 128) bank of padded frames and took the buffer's index by scalar
+// prefetch, so one compiled kernel served a whole serving loop with no
+// host work per call.  Here the bank is the (B, C, S) signals as they are,
+// and the kernel's staged instantiation reads the index from device memory
+// itself (or takes it as an argument): a loop over the bank needs no host
+// readback.  An index outside [0, B) read from device memory makes the
+// kernel write NaN (it cannot raise).
 
-#include <cuda_pipeline.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -68,6 +114,9 @@ constexpr int kThreadsS = 256;      // ping-pong blocks
 constexpr int kThreadsH = 512;      // the register-held block
 constexpr int kHeld = 32;           // values a thread holds in a stage (kThreadsH)
 constexpr int kStaticSmem = 1024;
+constexpr int kItems = 3;           // a fused tile block's split items: <= kItems a thread
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kBlocksPerSm = 4;     // the fused tile grid's target
 
 // x / d for 0 <= x < 2^31 by a multiply and a shift (d >= 1; the
 // round-up method: l = ceil(log2 d), mul = floor(2^32 (2^l - d) / d) + 1).
@@ -94,7 +143,7 @@ struct Stage {
 
 struct Plan {
   int n, s, nst;          // FFT length, M / n, stages
-  FastDiv by_m, by_k, by_n;
+  FastDiv by_m, by_k, by_n, by_ki;   // by M, K, n, and the split's items a frame
   Stage st[kMaxStages];
 };
 
@@ -105,12 +154,15 @@ __device__ __forceinline__ float2 twiddle(int j, int M) {
   return make_float2(cs, -sn);
 }
 
-// The table's entry, or the same value computed in place.
+// The table's entry (has: tab, in shared memory, holds the table), or the
+// same value computed in place.  tab is always a shared-memory address, so
+// its loads compile to shared-memory loads.
 struct Twiddle {
   const float2* tab;
   int M;
+  bool has;
   __device__ __forceinline__ float2 operator()(int j) const {
-    if (tab) return tab[j];
+    if (has) return tab[j];
     return twiddle(j, M);
   }
 };
@@ -120,6 +172,16 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 }
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+
+// x W_8^e for 0 <= e < 4 (e a constant once unrolled): x itself, x (1 - i)
+// / sqrt 2, -i x (exact), x (-1 - i) / sqrt 2.
+__device__ __forceinline__ float2 twiddle8(float2 x, int e) {
+  constexpr float h = 0.707106781186547524f;
+  if (e == 0) return x;
+  if (e == 1) return make_float2(h * (x.x + x.y), h * (x.y - x.x));
+  if (e == 2) return make_float2(x.y, -x.x);
+  return make_float2(h * (x.y - x.x), -h * (x.x + x.y));
+}
 
 template <int R>
 __device__ __forceinline__ void dft(float2 (&v)[R]) {
@@ -134,23 +196,53 @@ __device__ __forceinline__ void dft(float2 (&v)[R]) {
     v[2] = csub(t0, t2);
     v[1] = make_float2(t1.x + t3.y, t1.y - t3.x);   // t1 - i t3
     v[3] = make_float2(t1.x - t3.y, t1.y + t3.x);   // t1 + i t3
-  } else {   // R == 3: W = e^{-2 pi i / 3} = c + i sn
+  } else if constexpr (R == 3) {   // W = e^{-2 pi i / 3} = c + i sn
     constexpr float c = -0.5f, sn = -0.866025403784438647f;
     const float2 t = cadd(v[1], v[2]), d = csub(v[1], v[2]);
     const float2 mid = make_float2(v[0].x + c * t.x, v[0].y + c * t.y);
     v[0] = cadd(v[0], t);
     v[1] = make_float2(mid.x - sn * d.y, mid.y + sn * d.x);   // mid + i sn d
     v[2] = make_float2(mid.x + sn * d.y, mid.y - sn * d.x);   // mid - i sn d
+  } else {   // R == 8 as 2 x 4: with n = 4 n1 + n2 and k = k1 + 2 k2,
+             // X[k] = sum_n2 W_4^{n2 k2} W_8^{n2 k1} sum_n1 v[4 n1 + n2] W_2^{n1 k1}
+    static_assert(R == 8, "dft: radix 2, 3, 4 or 8");
+    float2 a[4][2];
+#pragma unroll
+    for (int n2 = 0; n2 < 4; ++n2) {
+      float2 p[2] = {v[n2], v[n2 + 4]};
+      dft<2>(p);
+      a[n2][0] = p[0];
+      a[n2][1] = twiddle8(p[1], n2);
+    }
+#pragma unroll
+    for (int k1 = 0; k1 < 2; ++k1) {
+      float2 q[4] = {a[0][k1], a[1][k1], a[2][k1], a[3][k1]};
+      dft<4>(q);
+#pragma unroll
+      for (int k2 = 0; k2 < 4; ++k2) v[k1 + 2 * k2] = q[k2];
+    }
   }
 }
 
-// Butterfly j (< n/R) of a radix-R stage: its inputs, twiddled, transformed.
-template <int R>
-__device__ __forceinline__ void butterfly(float2 (&v)[R], const float2* in, int j,
+// Where point i of a block's frame buffers lies: i + i / 16 when padded
+// (one pad point every 16, so a stage's strided loads and stores fall on
+// distinct banks), else i.
+template <bool kPad>
+__device__ __forceinline__ int at(int i) {
+  return kPad ? i + (i >> 4) : i;
+}
+
+// Points a padded buffer of np points spans.
+__host__ __device__ __forceinline__ int padded(int np) { return np + (np + 15) / 16; }
+
+// Butterfly j (< n/R) of a radix-R stage over the frame at `base`: its
+// inputs, twiddled, transformed.
+template <int R, bool kPad>
+__device__ __forceinline__ void butterfly(float2 (&v)[R], const float2* in, int base, int j,
                                           const Stage& g, int jm, const Twiddle& tw, int s) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    v[r] = in[j + r * g.nR];
+    v[r] = in[at<kPad>(base + j + r * g.nR)];
     if (r > 0 && jm > 0) v[r] = cmul(v[r], tw(s * jm * r * g.step));
   }
   dft<R>(v);
@@ -163,43 +255,45 @@ __device__ __forceinline__ int dest(int j, const Stage& g, int* jm) {
   return jq * g.Ns * g.R + *jm;
 }
 
-// Output k (< R) of butterfly j of a direct length-R stage (any R):
-// sum_r in[j + r n/R] W_n^{r (jm step + k n/R)}.
-__device__ __forceinline__ float2 direct(const float2* in, int j, int jm, int k, int n,
+// Output k (< R) of butterfly j of a direct length-R stage (any R) over
+// the frame at `base`: sum_r in[j + r n/R] W_n^{r (jm step + k n/R)}.
+template <bool kPad>
+__device__ __forceinline__ float2 direct(const float2* in, int base, int j, int jm, int k, int n,
                                          const Stage& g, const Twiddle& tw, int s) {
-  const int base = jm * g.step + k * g.nR;
+  const int e0 = jm * g.step + k * g.nR;
   float2 acc = make_float2(0.f, 0.f);
   int e = 0;
   for (int r = 0; r < g.R; ++r) {
-    acc = cadd(acc, cmul(in[j + r * g.nR], tw(s * e)));
-    e += base;
+    acc = cadd(acc, cmul(in[at<kPad>(base + j + r * g.nR)], tw(s * e)));
+    e += e0;
     if (e >= n) e -= n;
   }
   return acc;
 }
 
 // A stage from `in` to `out` over frames [0, nf) of n points (ping-pong).
-template <int R>
+template <int R, bool kPad>
 __device__ void stage_pp(const float2* in, float2* out, int nf, int n, const Stage& g,
                          const Twiddle& tw, int s) {
   for (int b = threadIdx.x; b < nf * g.nR; b += blockDim.x) {
     const int f = g.by_nr.div(b), j = b - f * g.nR;
     int jm;
-    float2* o = out + f * n + dest(j, g, &jm);
+    const int o = f * n + dest(j, g, &jm);
     float2 v[R];
-    butterfly<R>(v, in + f * n, j, g, jm, tw, s);
+    butterfly<R, kPad>(v, in, f * n, j, g, jm, tw, s);
 #pragma unroll
-    for (int k = 0; k < R; ++k) o[k * g.Ns] = v[k];
+    for (int k = 0; k < R; ++k) out[at<kPad>(o + k * g.Ns)] = v[k];
   }
 }
 
+template <bool kPad>
 __device__ void stage_pp_direct(const float2* in, float2* out, int nf, int n, const Stage& g,
                                 const FastDiv& by_n, const Twiddle& tw, int s) {
   for (int o = threadIdx.x; o < nf * n; o += blockDim.x) {
     const int f = by_n.div(o), jk = o - f * n, k = g.by_nr.div(jk), j = jk - k * g.nR;
     int jm;
-    const int at = dest(j, g, &jm);
-    out[f * n + at + k * g.Ns] = direct(in + f * n, j, jm, k, n, g, tw, s);
+    const int d = dest(j, g, &jm);
+    out[at<kPad>(f * n + d + k * g.Ns)] = direct<kPad>(in, f * n, j, jm, k, n, g, tw, s);
   }
 }
 
@@ -216,7 +310,7 @@ __device__ void stage_held(float2* buf, const Stage& g, const Twiddle& tw, int s
     if (j < g.nR) {
       int jm;
       at[i] = dest(j, g, &jm);
-      butterfly<R>(v[i], buf, j, g, jm, tw, s);
+      butterfly<R, false>(v[i], buf, 0, j, g, jm, tw, s);
     }
   }
   __syncthreads();
@@ -240,7 +334,7 @@ __device__ void stage_held_direct(float2* buf, int n, const Stage& g, const Twid
       const int k = g.by_nr.div(o), j = o - k * g.nR;
       int jm;
       at[i] = dest(j, g, &jm) + k * g.Ns;
-      v[i] = direct(buf, j, jm, k, n, g, tw, s);
+      v[i] = direct<false>(buf, 0, j, jm, k, n, g, tw, s);
     }
   }
   __syncthreads();
@@ -252,8 +346,10 @@ __device__ void stage_held_direct(float2* buf, int n, const Stage& g, const Twid
 }
 
 // The block's buffers: b0 (the folded frames, then every other stage's
-// output) and b1; for the held layout b1 is unused.
-template <bool kHeldLayout>
+// output) and b1; for the held layout b1 is unused.  kMaxR: the largest
+// radix of the plan (4, or 8 for make_plan's fused plans); kPad: the
+// ping-pong buffers are padded (at<true>).
+template <bool kHeldLayout, int kMaxR, bool kPad>
 __device__ float2* run_stages(float2* b0, float2* b1, int nf, const Plan& pl,
                               const Twiddle& tw) {
   const int n = pl.n, s = pl.s;
@@ -261,7 +357,9 @@ __device__ float2* run_stages(float2* b0, float2* b1, int nf, const Plan& pl,
   for (int i = 0; i < pl.nst; ++i) {
     const Stage& g = pl.st[i];
     if constexpr (kHeldLayout) {
-      if (g.R == 4)
+      if (kMaxR >= 8 && g.R == 8)
+        stage_held<kMaxR >= 8 ? 8 : 4>(in, g, tw, s);
+      else if (g.R == 4)
         stage_held<4>(in, g, tw, s);
       else if (g.R == 2)
         stage_held<2>(in, g, tw, s);
@@ -270,14 +368,16 @@ __device__ float2* run_stages(float2* b0, float2* b1, int nf, const Plan& pl,
       else
         stage_held_direct(in, n, g, tw, s);
     } else {
-      if (g.R == 4)
-        stage_pp<4>(in, out, nf, n, g, tw, s);
+      if (kMaxR >= 8 && g.R == 8)
+        stage_pp<kMaxR >= 8 ? 8 : 4, kPad>(in, out, nf, n, g, tw, s);
+      else if (g.R == 4)
+        stage_pp<4, kPad>(in, out, nf, n, g, tw, s);
       else if (g.R == 2)
-        stage_pp<2>(in, out, nf, n, g, tw, s);
+        stage_pp<2, kPad>(in, out, nf, n, g, tw, s);
       else if (g.R == 3)
-        stage_pp<3>(in, out, nf, n, g, tw, s);
+        stage_pp<3, kPad>(in, out, nf, n, g, tw, s);
       else
-        stage_pp_direct(in, out, nf, n, g, pl.by_n, tw, s);
+        stage_pp_direct<kPad>(in, out, nf, n, g, pl.by_n, tw, s);
       float2* t = in;
       in = out;
       out = t;
@@ -287,16 +387,211 @@ __device__ float2* run_stages(float2* b0, float2* b1, int nf, const Plan& pl,
   return in;
 }
 
+// The fused plan's stages for a power-of-two kN known at compile time
+// (make_plan(M, pl, 8): radix 8 first where 8 divides, then 4s, then a 2),
+// an even M (s = 2): stage_pp with every radix, stride and divisor a
+// constant, so the index arithmetic folds to shifts and masks and the first
+// stage's twiddles vanish.  Instantiated for the main path's n = 128 only,
+// the one size where its gain over run_stages was measured.  Returns the
+// buffer that holds the transform.
+template <int kN, int kNs, bool kPad>
+__device__ __forceinline__ float2* stages_pow2(float2* in, float2* out, int nf, const Twiddle& tw) {
+  constexpr int left = kN / kNs;
+  if constexpr (left == 1) {
+    return in;
+  } else {
+    constexpr int R = kNs == 1 && left % 8 == 0 ? 8 : left % 4 == 0 ? 4 : 2;
+    constexpr int nR = kN / R, step = kN / (kNs * R);
+    for (int b = threadIdx.x; b < nf * nR; b += blockDim.x) {
+      const int f = b / nR, j = b % nR, jm = j % kNs;
+      const int o = f * kN + (j / kNs) * kNs * R + jm;
+      float2 v[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        v[r] = in[at<kPad>(f * kN + j + r * nR)];
+        if (kNs > 1 && r > 0) v[r] = cmul(v[r], tw(2 * jm * r * step));
+      }
+      dft<R>(v);
+#pragma unroll
+      for (int k = 0; k < R; ++k) out[at<kPad>(o + k * kNs)] = v[k];
+    }
+    __syncthreads();
+    return stages_pow2<kN, kNs * R, kPad>(out, in, nf, tw);
+  }
+}
+
+// cp.async of kBytes (4, 8 or 16) from global g to the shared-window
+// address s (__cvta_generic_to_shared), of which the first `from` bytes
+// come from g and the rest are zero; committed in groups, waited for by
+// cp_wait<N> (all but the newest N groups complete).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(unsigned s, const void* g, int from = kBytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(g), "n"(kBytes),
+               "r"(from)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
 // dst[i] = src[start + i] for i < W, zero outside [0, S); asynchronous
-// (cp.async), committed as one batch.
+// (cp.async), committed as one group.
 __device__ void stage_async(float* dst, const float* __restrict__ src, long long S,
                             long long start, int W) {
+  const unsigned d = smem_addr(dst);
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
     const long long g = start + i;
     const bool in = g >= 0 && g < S;
-    __pipeline_memcpy_async(dst + i, in ? src + g : src, sizeof(float), in ? 0 : sizeof(float));
+    cp_async<4>(d + 4 * i, in ? src + g : src, in ? 4 : 0);
   }
-  __pipeline_commit();
+  cp_commit();
+}
+
+// The fold of frames t0 .. t0 + nf - 1 of one channel into b0:
+// u[f][p] = sum_{q<m} x[(t0 + f) D - P + q M + p] hf[q M + p], packed two
+// reals a point for even M (pl.s == 2).  From the staged window `sig` (its
+// sample 0 at (t0 D - P)) and prototype `hf_s` in shared memory when
+// `stage`, four samples a thread where M and D allow float4; otherwise from
+// device memory (the channel's signal xc, hf).
+template <bool kPad>
+__device__ __forceinline__ void fold(float2* b0, const float* sig, const float* hf_s,
+                                     const float* __restrict__ xc, const float* __restrict__ hf,
+                                     int S, int M, int m, int D, int t0, int nf, const Plan& pl,
+                                     bool stage) {
+  const int n = pl.n, P = m * M - D;
+  const bool vec = M % 4 == 0 && D % 4 == 0;   // the staged window's rows are 16-byte aligned
+  float* bf = reinterpret_cast<float*>(b0);
+  if (stage && vec) {   // four samples a thread, float4 from shared memory
+    for (int e = 4 * threadIdx.x; e < nf * M; e += 4 * blockDim.x) {
+      const int f = pl.by_m.div(e), p = e - f * M;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < m; ++q) {
+        const float4 xv = *reinterpret_cast<const float4*>(sig + f * D + q * M + p);
+        const float4 hv = *reinterpret_cast<const float4*>(hf_s + q * M + p);
+        acc.x = fmaf(xv.x, hv.x, acc.x);
+        acc.y = fmaf(xv.y, hv.y, acc.y);
+        acc.z = fmaf(xv.z, hv.z, acc.z);
+        acc.w = fmaf(xv.w, hv.w, acc.w);
+      }
+      if (kPad) {   // points f n + p / 2 and the next (M is even)
+        b0[at<true>(f * n + p / 2)] = make_float2(acc.x, acc.y);
+        b0[at<true>(f * n + p / 2 + 1)] = make_float2(acc.z, acc.w);
+      } else if (pl.s == 2) {
+        *reinterpret_cast<float4*>(bf + 2 * f * n + p) = acc;
+      } else {
+        float2* z = b0 + f * n + p;
+        z[0] = make_float2(acc.x, 0.f);
+        z[1] = make_float2(acc.y, 0.f);
+        z[2] = make_float2(acc.z, 0.f);
+        z[3] = make_float2(acc.w, 0.f);
+      }
+    }
+  }
+  for (int e = threadIdx.x; e < (stage && vec ? 0 : nf * M); e += blockDim.x) {
+    const int f = pl.by_m.div(e), p = e - f * M;
+    float acc = 0.f;
+    if (stage) {
+      const float* sp = sig + f * D + p;
+#pragma unroll 4
+      for (int q = 0; q < m; ++q) acc = fmaf(sp[q * M], hf_s[q * M + p], acc);
+    } else {
+      const long long g0 = static_cast<long long>(t0 + f) * D - P + p;
+      for (int q = 0; q < m; ++q) {
+        const long long g = g0 + static_cast<long long>(q) * M;
+        if (g >= 0 && g < S) acc = fmaf(__ldg(xc + g), __ldg(hf + q * M + p), acc);
+      }
+    }
+    if (pl.s == 2)
+      bf[2 * at<kPad>(f * n + p / 2) + (p & 1)] = acc;
+    else
+      b0[at<kPad>(f * n + p)] = make_float2(acc, 0.f);
+  }
+}
+
+// Bin k of the frame at `base` of Z, its FFT of n points: the even-M
+// split, or Z[k] for odd M.
+template <bool kPad>
+__device__ __forceinline__ float2 split_bin(const float2* Z, int base, int k, int n, int s,
+                                            const Twiddle& tw) {
+  if (s == 1) return Z[at<kPad>(base + k)];
+  if (k == 0 || k == n) {
+    const float2 z0 = Z[at<kPad>(base)];
+    return make_float2(k == 0 ? z0.x + z0.y : z0.x - z0.y, 0.f);
+  }
+  const float2 zk = Z[at<kPad>(base + k)], zn = Z[at<kPad>(base + n - k)];
+  const float2 zc = make_float2(zn.x, -zn.y);
+  const float2 ev = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
+  const float2 od = make_float2(0.5f * (zk.y - zc.y), -0.5f * (zk.x - zc.x));  // -i (zk - zc) / 2
+  return cadd(ev, cmul(tw(k), od));
+}
+
+// The fused kernel's split, an item at a time: for even M, item k <= n/2
+// of a frame gives bins k and n - k (one bin when they coincide: k = n/2),
+// from Z[k] and Z[n - k] and one twiddle, since with e = (Z[k] + conj
+// Z[n-k]) / 2 and u = W^k (-i) (Z[k] - conj Z[n-k]) / 2, A[k] = e + u and
+// A[n-k] = conj(e - u); item 0 gives bins 0 and n.  For odd M, item k is
+// bin k.
+__host__ __device__ __forceinline__ int split_items(int M) {
+  return M % 2 == 0 ? M / 4 + 1 : (M + 1) / 2;
+}
+
+template <bool kPad>
+__device__ __forceinline__ bool split_item(const float2* Z, int base, int k, int n, int s,
+                                           const Twiddle& tw, float2* a, float2* b) {
+  if (s == 1) {
+    *a = Z[at<kPad>(base + k)];
+    return false;
+  }
+  if (k == 0) {
+    const float2 z0 = Z[at<kPad>(base)];
+    *a = make_float2(z0.x + z0.y, 0.f);
+    *b = make_float2(z0.x - z0.y, 0.f);
+    return true;
+  }
+  const float2 zk = Z[at<kPad>(base + k)], zn = Z[at<kPad>(base + n - k)];
+  const float2 e = make_float2(0.5f * (zk.x + zn.x), 0.5f * (zk.y - zn.y));
+  const float2 u = cmul(tw(k), make_float2(0.5f * (zk.y + zn.y), -0.5f * (zk.x - zn.x)));
+  *a = cadd(e, u);
+  *b = make_float2(e.x - u.x, u.y - e.y);
+  return 2 * k != n;
+}
+
+// The fold of the fused tiles with the prototype in registers: thread
+// (rho, g) of the first r M / 4 takes samples p = 4 g .. 4 g + 3 of frames
+// rho, rho + r, rho + 2 r, ... (< nf).  Frame rho + r i reads the window's
+// vectors x_k = sig[rho D + p + k M] for k = i .. i + kTaps - 1 (M = r D), so
+// each vector is loaded once for the kTaps frames that use it; h[q] =
+// hf[q M + p .. p + 3], the sums in fold()'s order.  M and D multiples of 4.
+template <int kTaps>
+__device__ __forceinline__ void fold_slide(float2* b0, const float* sig, const float4 (&h)[kTaps],
+                                           int M, int D, int nf, int n) {
+  const int groups = M / 4, r = M / D;
+  if (static_cast<int>(threadIdx.x) >= r * groups) return;
+  const int rho = threadIdx.x / groups, p = 4 * (threadIdx.x - rho * groups);
+  const float* x = sig + rho * D + p;
+  float4 win[kTaps];
+#pragma unroll
+  for (int q = 1; q < kTaps; ++q) win[q] = *reinterpret_cast<const float4*>(x + (q - 1) * M);
+  for (int i = 0, f = rho; f < nf; ++i, f += r) {
+#pragma unroll
+    for (int q = 0; q + 1 < kTaps; ++q) win[q] = win[q + 1];
+    win[kTaps - 1] = *reinterpret_cast<const float4*>(x + (i + kTaps - 1) * M);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kTaps; ++q) {
+      acc.x = fmaf(win[q].x, h[q].x, acc.x);
+      acc.y = fmaf(win[q].y, h[q].y, acc.y);
+      acc.z = fmaf(win[q].z, h[q].z, acc.z);
+      acc.w = fmaf(win[q].w, h[q].w, acc.w);
+    }
+    b0[at<true>(f * n + p / 2)] = make_float2(acc.x, acc.y);
+    b0[at<true>(f * n + p / 2 + 1)] = make_float2(acc.z, acc.w);
+  }
 }
 
 // grid-stride over tiles of F frames (tile = c * ntile + frame tile).
@@ -312,13 +607,11 @@ analysis_fft_kernel(const float* __restrict__ x, const float* __restrict__ hf,
                     int table, int stage, Plan pl, float2* __restrict__ gbuf) {
   extern __shared__ __align__(16) float2 smem[];
   const int n = pl.n, K = M / 2 + 1, L = m * M, P = L - D, ntile = (T + F - 1) / F;
-  const bool vec = M % 4 == 0 && D % 4 == 0;   // the staged window's rows are 16-byte aligned
-  float2* tab = table ? smem : nullptr;
   float2* b0 = gbuf ? gbuf + 2ll * F * n * blockIdx.x : smem + (table ? M : 0);
   float2* b1 = b0 + F * n;
   float* hf_s = reinterpret_cast<float*>(smem + (table ? M : 0) + 2 * F * n);
   float* sig = hf_s + L;
-  const Twiddle tw{tab, M};
+  const Twiddle tw{smem, M, table != 0};
   // the prototype and the first tile's window are in flight while the
   // twiddle table is filled
   const auto window = [&](int tile) {
@@ -330,81 +623,234 @@ analysis_fft_kernel(const float* __restrict__ x, const float* __restrict__ hf,
     stage_async(hf_s, hf, L, 0, L);
     if (blockIdx.x < C * ntile) window(blockIdx.x);
   }
-  if (tab)
-    for (int j = threadIdx.x; j < M; j += blockDim.x) tab[j] = twiddle(j, M);
+  if (table)
+    for (int j = threadIdx.x; j < M; j += blockDim.x) smem[j] = twiddle(j, M);
   for (int tile = blockIdx.x; tile < C * ntile; tile += gridDim.x) {
     const int c = tile / ntile, t0 = (tile - c * ntile) * F, nf = min(F, T - t0);
-    const float* xc = x + static_cast<long long>(c) * S;
-    // fold: u[f][p], packed two reals a point for even M
-    float* bf = reinterpret_cast<float*>(b0);
     if (stage) {
       if (tile != blockIdx.x) window(tile);
-      __pipeline_wait_prior(0);
+      cp_wait<0>();
       __syncthreads();
     }
-    if (stage && vec) {   // four samples a thread, float4 from shared memory
-      for (int e = 4 * threadIdx.x; e < nf * M; e += 4 * blockDim.x) {
-        const int f = pl.by_m.div(e), p = e - f * M;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int q = 0; q < m; ++q) {
-          const float4 xv = *reinterpret_cast<const float4*>(sig + f * D + q * M + p);
-          const float4 hv = *reinterpret_cast<const float4*>(hf_s + q * M + p);
-          acc.x = fmaf(xv.x, hv.x, acc.x);
-          acc.y = fmaf(xv.y, hv.y, acc.y);
-          acc.z = fmaf(xv.z, hv.z, acc.z);
-          acc.w = fmaf(xv.w, hv.w, acc.w);
-        }
-        if (pl.s == 2) {
-          *reinterpret_cast<float4*>(bf + 2 * f * n + p) = acc;
-        } else {
-          float2* z = b0 + f * n + p;
-          z[0] = make_float2(acc.x, 0.f);
-          z[1] = make_float2(acc.y, 0.f);
-          z[2] = make_float2(acc.z, 0.f);
-          z[3] = make_float2(acc.w, 0.f);
-        }
-      }
-    }
-    for (int e = threadIdx.x; e < (stage && vec ? 0 : nf * M); e += blockDim.x) {
-      const int f = pl.by_m.div(e), p = e - f * M;
-      float acc = 0.f;
-      if (stage) {
-        const float* sp = sig + f * D + p;
-#pragma unroll 4
-        for (int q = 0; q < m; ++q) acc = fmaf(sp[q * M], hf_s[q * M + p], acc);
-      } else {
-        const long long g0 = static_cast<long long>(t0 + f) * D - P + p;
-        for (int q = 0; q < m; ++q) {
-          const long long g = g0 + static_cast<long long>(q) * M;
-          if (g >= 0 && g < S) acc = fmaf(__ldg(xc + g), __ldg(hf + q * M + p), acc);
-        }
-      }
-      if (pl.s == 2)
-        bf[2 * f * n + p] = acc;
-      else
-        b0[f * n + p] = make_float2(acc, 0.f);
-    }
+    fold<false>(b0, sig, hf_s, x + static_cast<long long>(c) * S, hf, S, M, m, D, t0, nf, pl,
+                stage);
     __syncthreads();
-    const float2* Z = run_stages<kHeldLayout>(b0, b1, nf, pl, tw);
+    const float2* Z = run_stages<kHeldLayout, 4, false>(b0, b1, nf, pl, tw);
     // the K bins of each frame
     float2* o = out + (static_cast<long long>(c) * T + t0) * K;
     for (int e = threadIdx.x; e < nf * K; e += blockDim.x) {
       const int f = pl.by_k.div(e), k = e - f * K;
-      const float2* z = Z + f * n;
-      float2 a;
-      if (pl.s == 1) {
-        a = z[k];
-      } else if (k == 0 || k == n) {
-        a = make_float2(k == 0 ? z[0].x + z[0].y : z[0].x - z[0].y, 0.f);
-      } else {
-        const float2 zk = z[k], zc = make_float2(z[n - k].x, -z[n - k].y);
-        const float2 ev = make_float2(0.5f * (zk.x + zc.x), 0.5f * (zk.y + zc.y));
-        const float2 od = make_float2(0.5f * (zk.y - zc.y), -0.5f * (zk.x - zc.x));  // -i (zk - zc) / 2
-        a = cadd(ev, cmul(tw(k), od));
-      }
-      o[static_cast<long long>(f) * K + k] = a;
+      o[static_cast<long long>(f) * K + k] = split_bin<false>(Z, f * n, k, n, pl.s, tw);
     }
     __syncthreads();   // the buffers are free for the next tile
+  }
+}
+
+// ---- fused analysis + beamform ----------------------------------------------
+
+// The staged bank's buffer: x (B, C, S) at index *idx (device memory) or
+// idx_host; out of range, buffer 0 is read and *bad set.
+struct Staged {
+  const int* idx;
+  int idx_host, nbuf;
+  long long stride;
+};
+
+__device__ __forceinline__ const float* staged_buffer(const float* x, const Staged& st,
+                                                      bool* bad) {
+  const int b = st.idx ? __ldg(st.idx) : st.idx_host;
+  *bad = b < 0 || b >= st.nbuf;
+  return x + (*bad ? 0 : static_cast<long long>(b) * st.stride);
+}
+
+__device__ __forceinline__ float2 nan2() {
+  return make_float2(__int_as_float(0x7fffffff), __int_as_float(0x7fffffff));
+}
+
+// acc + conj(w) a
+__device__ __forceinline__ float2 cmac_conj(float2 w, float2 a, float2 acc) {
+  return make_float2(fmaf(w.x, a.x, fmaf(w.y, a.y, acc.x)),
+                     fmaf(w.x, a.y, fmaf(-w.y, a.x, acc.y)));
+}
+
+// w[k, c] from the block's slice (has: channels [c0, c0 + rows),
+// transposed to (c, k) in shared memory at `slice`) or, without one, from
+// device memory.
+struct Weights {
+  const float2* slice;
+  const float2* w;
+  int C, K, c0;
+  bool has;
+  __device__ __forceinline__ float2 operator()(int k, int c) const {
+    if (has) return slice[(c - c0) * K + k];
+    return __ldg(w + static_cast<long long>(k) * C + c);
+  }
+};
+
+// y[t, k] = sum_c conj(w[k, c]) A_c[t, k]: each channel's frames folded,
+// transformed (the plan's radix-8 and -4 stages, in buffers padded by
+// at<true>) and split as in analysis_fft_kernel, then weighted and summed;
+// the per-channel spectra are never stored.
+//
+// kTile (the layout-0 tiles): a tile of F frames is the work of Q blocks, a
+// thread-block cluster of dims (Q, 1, 1), so blockIdx.x % Q is a block's
+// rank q; rank q takes channels [q C / Q, (q + 1) C / Q) in order, its
+// threads holding the sums of their split items (two bins each) in
+// registers.  At the end each rank puts its partial tile in its own
+// buffers, and the cluster's ranks each sum a share of the entries over
+// the ranks' partials read through distributed shared memory in rank order
+// (0, 1, ..., Q-1): a fixed order, so the result is deterministic.  The
+// tiles always have the twiddle table (plan_beamform gives a tile plan no
+// other).  kTaps (4: m = 4; 0: any m): the fold keeps the thread's taps in
+// registers (fold_slide).
+// Otherwise (a block per frame: F = 1, Q = 1; the grid strides over frames
+// when the buffers are in device memory), the sums live in the block's own
+// row of y, read and written by the same thread for every channel in order.
+// Shared memory: the twiddle table (M entries) when `table`; the buffers
+// when gbuf is null (else 2 padded(F n) points per block at gbuf); the
+// weights' slice (wrows x K) when `wrows`; when `stage`, the prototype
+// (unless kTaps) and two windows of (F-1) D + L floats, the next channel's
+// copied in (cp.async) while this one is transformed.
+// kStaged: x is the staged bank and `st` names the buffer; an index out of
+// range writes NaN.
+template <bool kHeldLayout, bool kTile, bool kStaged, int kTaps>
+__global__ void __launch_bounds__(kHeldLayout ? kThreadsH : kThreadsS, kTile ? 4 : 1)
+analysis_beamform_kernel(const float* __restrict__ x, const float* __restrict__ hf,
+                         const float2* __restrict__ w, float2* __restrict__ y, int C, int S,
+                         int T, int M, int m, int D, int F, int Q, int table, int wrows,
+                         int stage, Plan pl, float2* __restrict__ gbuf, Staged st) {
+  extern __shared__ __align__(16) float2 smem[];
+  bool bad = false;
+  if constexpr (kStaged) x = staged_buffer(x, st, &bad);
+  constexpr bool kPad = !kHeldLayout;   // the ping-pong buffers are padded
+  const int n = pl.n, K = M / 2 + 1, KI = split_items(M), L = m * M, P = L - D;
+  const int ntile = (T + F - 1) / F, W = (F - 1) * D + L;
+  const int nb = kPad ? padded(F * n) : F * n;   // points a buffer
+  // the tiles' buffers are in shared memory (their pointers shared-memory
+  // addresses, so their accesses compile to shared-memory instructions)
+  float2* b0 = !kTile && gbuf ? gbuf + 2ll * nb * blockIdx.x : smem + (table ? M : 0);
+  float2* b1 = b0 + nb;
+  float2* wsl = smem + (table ? M : 0) + 2 * nb;
+  float* hf_s = reinterpret_cast<float*>(wsl + ((wrows * K + 1) & ~1));
+  float* sig0 = hf_s + (kTaps ? 0 : L);
+  float* sig[2] = {sig0, sig0 + W};
+  const Twiddle tw{smem, M, kTile || table != 0};   // the tiles always have it
+  const int q = kTile ? blockIdx.x % Q : 0;
+  const int c0 = q * C / Q, c1 = (q + 1) * C / Q;
+  const int first = kTile ? blockIdx.x / Q : blockIdx.x;
+  const int stride = kTile ? ntile : gridDim.x;
+  const Weights wt{wsl, w, C, K, c0, wrows > 0};
+  const auto window = [&](int tile, int c, float* dst) {
+    const int t0 = tile * F;
+    stage_async(dst, x + static_cast<long long>(c) * S, S, static_cast<long long>(t0) * D - P,
+                (min(F, T - t0) - 1) * D + L);
+  };
+  // the weights' slice, the prototype and the first window are in flight
+  // while the twiddle table is filled
+  if (wrows) {
+    const unsigned ws = smem_addr(wsl);
+    for (int e = threadIdx.x; e < (c1 - c0) * K; e += blockDim.x) {
+      const int k = e / (c1 - c0), c = c0 + e - k * (c1 - c0);
+      cp_async<8>(ws + 8 * ((c - c0) * K + k), w + static_cast<long long>(k) * C + c);
+    }
+    cp_commit();
+  }
+  float4 h[kTaps ? kTaps : 1];
+  if constexpr (kTaps > 0) {
+    const int groups = M / 4;
+    if (static_cast<int>(threadIdx.x) < (M / D) * groups) {
+      const int p = 4 * (threadIdx.x % groups);
+#pragma unroll
+      for (int j = 0; j < kTaps; ++j) h[j] = __ldg(reinterpret_cast<const float4*>(hf + j * M + p));
+    }
+  }
+  if (stage) {
+    if (!kTaps) stage_async(hf_s, hf, L, 0, L);
+    if (first < ntile && c0 < c1) window(first, c0, sig[0]);
+  }
+  if (table)
+    for (int j = threadIdx.x; j < M; j += blockDim.x) smem[j] = twiddle(j, M);
+  for (int tile = first; tile < ntile; tile += stride) {
+    const int t0 = tile * F, nf = min(F, T - t0);
+    float2* yt = y + static_cast<long long>(t0) * K;
+    float2 acc[kTile ? kItems : 1][2];
+#pragma unroll
+    for (int i = 0; i < (kTile ? kItems : 1); ++i) acc[i][0] = acc[i][1] = make_float2(0.f, 0.f);
+    if (stage && tile != first) window(tile, c0, sig[0]);
+    for (int c = c0; c < c1; ++c) {
+      const int j = c - c0;
+      if (stage && c + 1 < c1) {
+        window(tile, c + 1, sig[(j + 1) & 1]);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();   // the window is in place; the last channel's bins are read
+      if constexpr (kTaps > 0)
+        fold_slide<kTaps>(b0, sig[j & 1], h, M, D, nf, n);
+      else
+        fold<kPad>(b0, sig[j & 1], hf_s, x + static_cast<long long>(c) * S, hf, S, M, m, D, t0,
+                   nf, pl, stage);
+      __syncthreads();
+      const float2* Z;
+      if constexpr (kTile)   // the main path's size with constant stages
+        Z = M == 256 ? stages_pow2<128, 1, kPad>(b0, b1, nf, tw)
+                     : run_stages<kHeldLayout, 8, kPad>(b0, b1, nf, pl, tw);
+      else
+        Z = run_stages<kHeldLayout, 8, kPad>(b0, b1, nf, pl, tw);
+      // the sums of conj(w) A, an item (bins k and n - k) at a time
+      if constexpr (kTile) {
+#pragma unroll
+        for (int i = 0; i < kItems; ++i) {
+          const int e = threadIdx.x + i * kThreadsS;
+          if (e < nf * KI) {
+            const int f = pl.by_ki.div(e), k = e - f * KI;
+            float2 a, b;
+            const bool two = split_item<kPad>(Z, f * n, k, n, pl.s, tw, &a, &b);
+            acc[i][0] = cmac_conj(wt(k, c), a, acc[i][0]);
+            if (two) acc[i][1] = cmac_conj(wt(n - k, c), b, acc[i][1]);
+          }
+        }
+      } else {
+        for (int e = threadIdx.x; e < nf * KI; e += blockDim.x) {
+          const int f = pl.by_ki.div(e), k = e - f * KI;
+          float2 a, b;
+          const bool two = split_item<kPad>(Z, f * n, k, n, pl.s, tw, &a, &b);
+          float2* o = yt + f * K;
+          const bool last = kStaged && bad && c == C - 1;
+          o[k] = last ? nan2() : cmac_conj(wt(k, c), a, c == 0 ? make_float2(0.f, 0.f) : o[k]);
+          if (two)
+            o[n - k] = last ? nan2()
+                            : cmac_conj(wt(n - k, c), b, c == 0 ? make_float2(0.f, 0.f) : o[n - k]);
+        }
+      }
+    }
+    if constexpr (kTile) {
+      // the partial tile, entry f K + k, into this block's buffers (Q = 1:
+      // straight to y)
+      float2* part = Q == 1 ? yt : b0;
+      if (Q > 1) __syncthreads();   // the buffers' last bins are read
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int e = threadIdx.x + i * kThreadsS;
+        if (e < nf * KI) {
+          const int f = pl.by_ki.div(e), k = e - f * KI;
+          const bool two = pl.s == 2 && 2 * k != n;
+          part[f * K + k] = kStaged && bad ? nan2() : acc[i][0];
+          if (two) part[f * K + n - k] = kStaged && bad ? nan2() : acc[i][1];
+        }
+      }
+      if (Q > 1) {
+        cg::cluster_group cl = cg::this_cluster();
+        cl.sync();
+        for (int e = q * blockDim.x + threadIdx.x; e < nf * K; e += Q * blockDim.x) {
+          float2 v = cl.map_shared_rank(b0, 0)[e];
+          for (int r = 1; r < Q; ++r) v = cadd(v, cl.map_shared_rank(b0, r)[e]);
+          yt[e] = v;
+        }
+        cl.sync();   // every rank's partial stays until all are read
+      }
+    }
   }
 }
 
@@ -418,15 +864,18 @@ int smem_budget(int* bytes, int* sms) {
   return static_cast<int>(e);
 }
 
-// The FFT's length and stages: radix 4 while 4 divides, then 2, then 3s,
-// then the other primes in increasing order.
-void make_plan(int M, Plan* pl) {
+// The FFT's length and stages: one radix-8 stage where 8 divides (when
+// max_radix is 8: the fused kernel's plans; the analysis's is 4), radix 4
+// while 4 divides, then 2, then 3s, then the other primes in increasing
+// order.
+void make_plan(int M, Plan* pl, int max_radix) {
   const int n = M % 2 == 0 ? M / 2 : M;
   pl->n = n;
   pl->s = M / n;
   pl->by_m = FastDiv(M);
   pl->by_k = FastDiv(M / 2 + 1);
   pl->by_n = FastDiv(n);
+  pl->by_ki = FastDiv(split_items(M));
   pl->nst = 0;
   int r = n, ns = 1;
   auto add = [&](int R) {
@@ -443,6 +892,7 @@ void make_plan(int M, Plan* pl) {
     ns *= R;
     r /= R;
   };
+  if (max_radix >= 8 && r % 8 == 0) add(8);
   while (r % 4 == 0) add(4);
   if (r % 2 == 0) add(2);
   for (int q = 3; r > 1; q += 2)
@@ -454,8 +904,9 @@ void make_plan(int M, Plan* pl) {
 bool held_fits(const Plan& pl) {
   for (int i = 0; i < pl.nst; ++i) {
     const int R = pl.st[i].R;
-    const long long per = (R == 2 || R == 3 || R == 4) ? (kHeld / R) * static_cast<long long>(R)
-                                                       : kHeld;
+    const long long per = (R == 2 || R == 3 || R == 4 || R == 8)
+                              ? (kHeld / R) * static_cast<long long>(R)
+                              : kHeld;
     if (pl.n > per * kThreadsH) return false;
   }
   return true;
@@ -519,6 +970,142 @@ int plan_launch(int C, int T, int M, int m, int D, const Plan& pl, Launch* ln) {
   return 0;
 }
 
+// The fused kernel's launch: layout as Launch, Q blocks (a cluster) per
+// tile, whether the tile's sums are in registers (kTile), the prototype's
+// taps held in registers by the fold (kTaps, 4; 0: read from shared memory),
+// and the rows of the weights' slice in shared memory (0: read from device
+// memory).
+struct BfLaunch {
+  int layout, F, Q, grid, table, wrows, stage, tile, taps;
+  size_t smem, scratch;
+};
+
+// Tiles of F frames as the analysis's (F n <= 1024), then the channels
+// split over Q blocks a tile (a power of two up to the portable cluster
+// size and C) and F halved until the grid has kBlocksPerSm blocks an SM;
+// a block per frame for larger n, as the analysis.  A tile plan takes the
+// twiddle table or leaves layout 0, since the tiles' kernel reads the table
+// without a check.  hf_vec: the prototype may be read as float4 (16-byte
+// aligned).
+int plan_beamform(int C, int T, int M, int m, int D, bool hf_vec, const Plan& pl,
+                  BfLaunch* ln) {
+  int budget, sms;
+  const int rc = smem_budget(&budget, &sms);
+  if (rc) return rc;
+  const long long n = pl.n, K = M / 2 + 1, L = static_cast<long long>(m) * M, tab = 8ll * M;
+  const long long want = static_cast<long long>(kBlocksPerSm) * sms;
+  const auto tiles = [&](long long f) { return (T + f - 1) / f; };
+  long long F = kTilePoints / n > 1 ? kTilePoints / n : 1;
+  if (F > T) F = T;
+  int Q = 1;
+  while (2 * Q <= kMaxCluster && 2 * Q <= C && tiles(F) * Q < want) Q *= 2;
+  while (F > 1 && tiles(F) * Q < want) F = (F + 1) / 2;
+  ln->tile = F * split_items(M) <= static_cast<long long>(kItems) * kThreadsS;
+  if (!ln->tile) Q = 1;
+  ln->F = static_cast<int>(F);
+  ln->Q = Q;
+  ln->scratch = 0;
+  ln->stage = 0;
+  ln->taps = 0;
+  ln->wrows = 0;
+  ln->grid = static_cast<int>(tiles(F) * Q);
+  const long long pp = 16ll * padded(static_cast<int>(F * n));
+  const long long rows = (C + Q - 1) / Q, slice = 8 * ((rows * K + 1) & ~1ll);
+  const bool slide = ln->tile && hf_vec && m == 4 && M % 4 == 0 && D % 4 == 0 &&
+                     static_cast<long long>(M / D) * (M / 4) <= kThreadsS;
+  const long long windows = 8 * ((F - 1) * D + L);
+  for (int table = 1; table >= (ln->tile ? 1 : 0); --table) {
+    long long smem = pp + (table ? tab : 0);
+    if (smem <= budget) {
+      ln->layout = 0;
+      ln->table = table;
+      if (smem + slice <= budget) {
+        ln->wrows = static_cast<int>(rows);
+        smem += slice;
+      }
+      const long long staged = windows + (slide ? 0 : 4 * L);
+      ln->stage = smem + staged <= budget;
+      if (ln->stage) {
+        smem += staged;
+        ln->taps = slide ? m : 0;
+      }
+      ln->smem = static_cast<size_t>(smem);
+      return 0;
+    }
+  }
+  ln->F = 1;
+  ln->Q = 1;
+  ln->tile = 0;
+  ln->grid = T;
+  if (held_fits(pl))
+    for (int table = 1; table >= 0; --table) {
+      if (8 * n + (table ? tab : 0) <= budget) {
+        ln->layout = 1;
+        ln->table = table;
+        ln->smem = static_cast<size_t>(8 * n + (table ? tab : 0));
+        return 0;
+      }
+    }
+  ln->layout = 2;
+  ln->grid = T < 2 * sms ? T : 2 * sms;
+  ln->table = tab <= budget;
+  ln->smem = ln->table ? static_cast<size_t>(tab) : 0;
+  ln->scratch = 16ull * padded(static_cast<int>(n)) * ln->grid;
+  return 0;
+}
+
+template <bool kHeldLayout, bool kTile, bool kStaged, int kTaps>
+int launch_bf(const BfLaunch& ln, const float* x, const float* hf, const float2* w, float2* y,
+              int C, int S, int T, int M, int m, int D, const Plan& pl, float2* gbuf,
+              const Staged& stg, cudaStream_t st) {
+  const auto kernel = analysis_beamform_kernel<kHeldLayout, kTile, kStaged, kTaps>;
+  int rc = set_smem(reinterpret_cast<const void*>(kernel), ln.smem);
+  if (rc) return rc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(ln.grid));
+  cfg.blockDim = dim3(kHeldLayout ? kThreadsH : kThreadsS);
+  cfg.dynamicSmemBytes = ln.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = static_cast<unsigned>(ln.Q);
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = ln.Q > 1 ? 1 : 0;
+  rc = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, x, hf, w, y, C, S, T, M, m, D, ln.F,
+                                           ln.Q, ln.table, ln.wrows, ln.stage, pl, gbuf, stg));
+  if (rc) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kStaged>
+int analysis_beamform(const float* x, const float* hf, const float2* w, float2* y, void* scratch,
+                      int C, int S, int T, int M, int m, int D, const Staged& stg, void* stream) {
+  if (C < 1 || T < 1 || M < 1) return kNoFit;
+  Plan pl;
+  make_plan(M, &pl, 8);
+  if (pl.nst > kMaxStages) return kNoFit;
+  BfLaunch ln;
+  const int rc =
+      plan_beamform(C, T, M, m, D, reinterpret_cast<uintptr_t>(hf) % 16 == 0, pl, &ln);
+  if (rc) return rc;
+  if (ln.scratch > 0 && scratch == nullptr) return kNoFit;
+  float2* gbuf = ln.layout == 2 ? static_cast<float2*>(scratch) : nullptr;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ln.layout == 1)
+    return launch_bf<true, false, kStaged, 0>(ln, x, hf, w, y, C, S, T, M, m, D, pl, nullptr, stg,
+                                              st);
+  if (!ln.tile)
+    return launch_bf<false, false, kStaged, 0>(ln, x, hf, w, y, C, S, T, M, m, D, pl, gbuf, stg,
+                                               st);
+  if (ln.taps == 4)
+    return launch_bf<false, true, kStaged, 4>(ln, x, hf, w, y, C, S, T, M, m, D, pl, nullptr, stg,
+                                              st);
+  return launch_bf<false, true, kStaged, 0>(ln, x, hf, w, y, C, S, T, M, m, D, pl, nullptr, stg,
+                                            st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -528,7 +1115,7 @@ extern "C" {
 int dsr_fb_analysis_scratch(int C, int T, int M, int m, int D, long long* bytes) {
   if (C < 1 || T < 1 || M < 1) return kNoFit;
   Plan pl;
-  make_plan(M, &pl);
+  make_plan(M, &pl, 4);
   if (pl.nst > kMaxStages) return kNoFit;
   Launch ln;
   const int rc = plan_launch(C, T, M, m, D, pl, &ln);
@@ -542,7 +1129,7 @@ int dsr_fb_analysis(const float* x, const float* hf, float2* out, void* scratch,
                     int T, int M, int m, int D, void* stream) {
   if (C < 1 || T < 1 || M < 1) return kNoFit;
   Plan pl;
-  make_plan(M, &pl);
+  make_plan(M, &pl, 4);
   if (pl.nst > kMaxStages) return kNoFit;
   Launch ln;
   int rc = plan_launch(C, T, M, m, D, pl, &ln);
@@ -562,6 +1149,37 @@ int dsr_fb_analysis(const float* x, const float* hf, float2* out, void* scratch,
         x, hf, out, C, S, T, M, m, D, ln.F, ln.table, ln.stage, pl, gbuf);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The device scratch, in bytes, that dsr_fb_analysis_beamform(_staged)
+// needs for these arguments (0 unless the FFT exceeds what a block holds
+// in shared memory).
+int dsr_fb_analysis_beamform_scratch(int C, int T, int M, int m, int D, long long* bytes) {
+  if (C < 1 || T < 1 || M < 1) return kNoFit;
+  Plan pl;
+  make_plan(M, &pl, 8);
+  if (pl.nst > kMaxStages) return kNoFit;
+  BfLaunch ln;
+  const int rc = plan_beamform(C, T, M, m, D, true, pl, &ln);
+  *bytes = static_cast<long long>(ln.scratch);
+  return rc;
+}
+
+// x: (C, S) float32, hf: (L,), w: (K, C) complex64, y: (T, K) complex64;
+// scratch as dsr_fb_analysis's.
+int dsr_fb_analysis_beamform(const float* x, const float* hf, const float2* w, float2* y,
+                             void* scratch, int C, int S, int T, int M, int m, int D,
+                             void* stream) {
+  return analysis_beamform<false>(x, hf, w, y, scratch, C, S, T, M, m, D, Staged{}, stream);
+}
+
+// The staged bank: xbank (B, C, S) float32; the buffer is idx[0] (device
+// memory) when idx is not null, else idx_host.  Otherwise as above.
+int dsr_fb_analysis_beamform_staged(const float* xbank, const int* idx, int idx_host, int B,
+                                    const float* hf, const float2* w, float2* y, void* scratch,
+                                    int C, int S, int T, int M, int m, int D, void* stream) {
+  const Staged stg{idx, idx_host, B, static_cast<long long>(C) * S};
+  return analysis_beamform<true>(xbank, hf, w, y, scratch, C, S, T, M, m, D, stg, stream);
 }
 
 }  // extern "C"

@@ -2,10 +2,11 @@
 
 Counterpart of `dsr_tpu/ops/pallas/filterbank.py`.  Three CUDA kernels,
 each D-parametric, so one kernel serves every (M, m, r) where the TPU had
-a D == 128 kernel and a general one: the analysis, a factorised real FFT
-of each folded frame (`csrc/analysis.cu`: a mixed-radix Stockham FFT in
-shared memory, several frames a block at small M), and the fused analysis
-+ fixed-weight beamform and the synthesis, direct DFTs
+a D == 128 kernel and a general one: the analysis and the fused analysis
++ fixed-weight beamform, a factorised real FFT of each folded frame
+(`csrc/analysis.cu`: a mixed-radix Stockham FFT in shared memory, several
+frames a block at small M; the fused kernel splits a tile's channels over
+a thread-block cluster), and the synthesis, a direct IDFT
 (`csrc/filterbank.cu`).  The sources say what bounds each kernel on the
 card and how its design answers that.  The fused kernel also runs over a
 staged bank of B signals (`analysis_beamform_staged`), with the buffer's
@@ -91,7 +92,12 @@ def _analysis_kernel() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.dsr_fb_analysis_scratch.argtypes = [i, i, i, i, i, p]
     lib.dsr_fb_analysis.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.dsr_fb_analysis_scratch, lib.dsr_fb_analysis):
+    lib.dsr_fb_analysis_beamform_scratch.argtypes = [i, i, i, i, i, p]
+    lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.dsr_fb_analysis_beamform_staged.argtypes = [p, p, i, i, p, p, p, p, i, i, i, i, i, i, p]
+    for fn in (lib.dsr_fb_analysis_scratch, lib.dsr_fb_analysis,
+               lib.dsr_fb_analysis_beamform_scratch, lib.dsr_fb_analysis_beamform,
+               lib.dsr_fb_analysis_beamform_staged):
         fn.restype = ctypes.c_int
     return lib
 
@@ -100,14 +106,24 @@ def _analysis_kernel() -> ctypes.CDLL:
 def _kernels() -> ctypes.CDLL:
     lib = build.library("filterbank")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dsr_fb_analysis_beamform.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.dsr_fb_analysis_beamform_staged.argtypes = [p, p, i, i, p, p, p, i, i, i, i, i, i, p]
     lib.dsr_fb_synthesis_scratch.argtypes = [i, i, i, i, ll, i, p]
     lib.dsr_fb_synthesis.argtypes = [p, p, p, p, i, i, i, i, i, ll, i, p]
-    for fn in (lib.dsr_fb_analysis_beamform, lib.dsr_fb_analysis_beamform_staged,
-               lib.dsr_fb_synthesis_scratch, lib.dsr_fb_synthesis):
+    for fn in (lib.dsr_fb_synthesis_scratch, lib.dsr_fb_synthesis):
         fn.restype = ctypes.c_int
     return lib
+
+
+def _scratch(query, name: str, device: torch.device, C: int, T: int, M: int, m: int,
+             r: int) -> torch.Tensor | None:
+    """The device memory a kernel's FFTs need (M above 32,768, where a block
+    cannot hold one), or None."""
+    nbytes = ctypes.c_longlong()
+    _raise_on(query(C, T, M, m, M // r, ctypes.byref(nbytes)), name, M, m, r)
+    return torch.empty(nbytes.value, dtype=torch.uint8, device=device) if nbytes.value else None
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
 
 
 def _raise_on(rc: int, name: str, M: int, m: int, r: int) -> None:
@@ -130,16 +146,9 @@ def analysis(x: torch.Tensor, hf: torch.Tensor, M: int, m: int, r: int, T: int) 
     if out.numel() == 0:
         return out
     lib = _analysis_kernel()
-    # device memory for the FFTs only when a block cannot hold one (M above
-    # 32,768); none otherwise
-    nbytes = ctypes.c_longlong()
-    rc = lib.dsr_fb_analysis_scratch(C, T, M, m, D, ctypes.byref(nbytes))
-    _raise_on(rc, "analysis", M, m, r)
-    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=x.device) if nbytes.value
-               else None)
-    rc = lib.dsr_fb_analysis(x.data_ptr(), hf.data_ptr(), out.data_ptr(),
-                             None if scratch is None else scratch.data_ptr(), C, S, T, M, m, D,
-                             stream())
+    scratch = _scratch(lib.dsr_fb_analysis_scratch, "analysis", x.device, C, T, M, m, r)
+    rc = lib.dsr_fb_analysis(x.data_ptr(), hf.data_ptr(), out.data_ptr(), _ptr(scratch),
+                             C, S, T, M, m, D, stream())
     _raise_on(rc, "analysis", M, m, r)
     launches["analysis"] += 1
     return out
@@ -159,8 +168,11 @@ def analysis_beamform(x: torch.Tensor, hf: torch.Tensor, w: torch.Tensor,
     y = torch.empty((T, K), dtype=torch.complex64, device=x.device)
     if C == 0:
         return y.zero_()
-    rc = _kernels().dsr_fb_analysis_beamform(x.data_ptr(), hf.data_ptr(), w.data_ptr(),
-                                             y.data_ptr(), C, S, T, M, m, D, stream())
+    lib = _analysis_kernel()
+    scratch = _scratch(lib.dsr_fb_analysis_beamform_scratch, "analysis_beamform", x.device,
+                       C, T, M, m, r)
+    rc = lib.dsr_fb_analysis_beamform(x.data_ptr(), hf.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                      _ptr(scratch), C, S, T, M, m, D, stream())
     _raise_on(rc, "analysis_beamform", M, m, r)
     launches["analysis_beamform"] += 1
     return y
@@ -193,9 +205,12 @@ def analysis_beamform_staged(xp: torch.Tensor, idx, hf: torch.Tensor, w: torch.T
     if C == 0:
         return y.zero_()
     dev_idx = isinstance(idx, torch.Tensor)
-    rc = _kernels().dsr_fb_analysis_beamform_staged(
+    lib = _analysis_kernel()
+    scratch = _scratch(lib.dsr_fb_analysis_beamform_scratch, "analysis_beamform_staged",
+                       xp.device, C, T, M, m, r)
+    rc = lib.dsr_fb_analysis_beamform_staged(
         xp.data_ptr(), idx.data_ptr() if dev_idx else None, 0 if dev_idx else idx, B,
-        hf.data_ptr(), w.data_ptr(), y.data_ptr(), C, S, T, M, m, D, stream())
+        hf.data_ptr(), w.data_ptr(), y.data_ptr(), _ptr(scratch), C, S, T, M, m, D, stream())
     _raise_on(rc, "analysis_beamform_staged", M, m, r)
     launches["analysis_beamform_staged"] += 1
     return y
@@ -226,9 +241,8 @@ def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: 
     _raise_on(rc, "synthesis", M, m, r)
     scratch = (torch.empty(floats.value, dtype=torch.float32, device=A.device)
                if floats.value else None)
-    rc = lib.dsr_fb_synthesis(A.data_ptr(), gf.data_ptr(), y.data_ptr(),
-                              None if scratch is None else scratch.data_ptr(), C, T, M, m, D,
-                              start, out_len, stream())
+    rc = lib.dsr_fb_synthesis(A.data_ptr(), gf.data_ptr(), y.data_ptr(), _ptr(scratch), C, T,
+                              M, m, D, start, out_len, stream())
     _raise_on(rc, "synthesis", M, m, r)
     launches["synthesis"] += 1
     return y

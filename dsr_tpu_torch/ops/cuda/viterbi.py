@@ -9,7 +9,9 @@ advance only),
     delta_t[s] = max(delta_{t-1}[s] + w_self[s], delta_{t-1}[s-1] + w_adv[s]) + ll[t, s]
     bp_t[s]    = 1 where the advance is strictly larger (ties go to self)
 
-for U utterances at once (`csrc/viterbi.cu`, one block per utterance).
+for U utterances at once (`csrc/viterbi.cu`, one block per utterance: up
+to 1,024 states lanes of one to four consecutive states, one warp up to
+128 states, more warps above; a block striding over the states beyond).
 State 0 has no predecessor.  (The TPU kernel rolls delta across its padded
 (R, 128) plane, so there state 0's "advance" reads the last padded state;
 with the caller's adv_lp[0] = -1e30 both give state 0 no advance.)

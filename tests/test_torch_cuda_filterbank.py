@@ -2,9 +2,12 @@
 the fused analysis+beamform's plain twin against the Pallas fused kernel
 (interpret mode), the analysis kernel's FFT plan (`ops/cuda/csrc/
 analysis.cu`) transcribed to NumPy against the plain twin and the JAX
-package's analysis, CPU tensors running the plain twins without counting a
-launch, and other devices refused.  Tolerance: 1e-5 of the largest
-magnitude, as in tests/test_torch_filterbank.py.
+package's analysis, the fused kernel's tiling (tiles of F frames, the
+channels split over a cluster's Q ranks, their partial tiles summed in rank
+order, the radix-8 plan and the split by items) transcribed to NumPy
+against the plain twin, CPU tensors running the plain twins without
+counting a launch, and other devices refused.  Tolerance: 1e-5 of the
+largest magnitude, as in tests/test_torch_filterbank.py.
 """
 
 import numpy as np
@@ -40,10 +43,13 @@ def test_fused_analysis_beamform_matches_pallas():
 # ------------------------------------------ analysis.cu's FFT plan, in NumPy
 
 
-def _radices(n):
-    """make_plan's stages: radix 4 while 4 divides, then 2, then 3s, then
+def _radices(n, max_radix=4):
+    """make_plan's stages: one radix 8 where 8 divides (max_radix 8, the
+    fused kernel's plans), radix 4 while 4 divides, then 2, then 3s, then
     the other primes in increasing order."""
     out = []
+    if max_radix >= 8 and n % 8 == 0:
+        out, n = [8], n // 8
     while n % 4 == 0:
         out, n = out + [4], n // 4
     if n % 2 == 0:
@@ -66,12 +72,13 @@ def _twiddles(M):
     return (c - 1j * s).astype(np.complex64)
 
 
-def _analysis_fft_in_numpy(x, hf, M, m, D, T):
+def _analysis_fft_in_numpy(x, hf, M, m, D, T, max_radix=4, split=True):
     """analysis_fft_kernel: fold, pack two reals a point (even M), the
     mixed-radix Stockham stages (stage of radix R, Ns the product of the
     earlier radices: element j + r n/R, twiddled by W_n^{(j mod Ns) r
     n/(Ns R)}, goes through a length-R DFT to (j div Ns) Ns R + (j mod Ns)
-    + k Ns), then the even-M split into M/2 + 1 bins."""
+    + k Ns), then the even-M split into M/2 + 1 bins (split=False: the
+    transform Z before it)."""
     C, S = x.shape
     P = m * M - D
     g = (np.arange(T)[:, None] * D - P + np.arange(m * M)[None, :])
@@ -82,7 +89,7 @@ def _analysis_fft_in_numpy(x, hf, M, m, D, T):
     tw = _twiddles(M)
     z = (u[..., 0::2] + 1j * u[..., 1::2] if s == 2 else u).astype(np.complex64)
     Ns = 1
-    for R in _radices(n):
+    for R in _radices(n, max_radix):
         nR = n // R
         j = np.arange(nR)
         jm = j % Ns
@@ -92,6 +99,8 @@ def _analysis_fft_in_numpy(x, hf, M, m, D, T):
             out[..., (j // Ns) * Ns * R + jm + k * Ns] = sum(
                 v[r] * tw[s * ((r * k) % R) * nR] for r in range(R))
         z, Ns = out, Ns * R
+    if not split:
+        return z
     if s == 1:
         return z[..., :M // 2 + 1]
     k = np.arange(1, n)
@@ -125,6 +134,91 @@ def test_fft_plan_in_numpy_matches_plain_and_jax():
         ref = np.asarray(jfb.analysis(x, jcfg))
         got = _analysis_fft_in_numpy(x, hf, M, m, M // r, ref.shape[1])
         assert rel(got, ref) < 1e-5, (M, m, r)
+
+
+# ------------------------------------ analysis.cu's fused tiles, in NumPy
+
+
+def _fused_tiling(C, T, M, sms):
+    """plan_beamform's tile layout for a card of `sms` SMs: F frames a tile
+    (F n <= 1024), Q ranks a tile (a power of two up to 8 and C), both while
+    the grid has fewer than 4 blocks an SM; tiles hold their sums in
+    registers when F items a frame fit 3 a thread of 256."""
+    n = M // 2 if M % 2 == 0 else M
+    tiles = lambda f: -(-T // f)   # noqa: E731
+    F, Q = min(max(1, 1024 // n), T), 1
+    while 2 * Q <= 8 and 2 * Q <= C and tiles(F) * Q < 4 * sms:
+        Q *= 2
+    while F > 1 and tiles(F) * Q < 4 * sms:
+        F = (F + 1) // 2
+    items = M // 4 + 1 if M % 2 == 0 else (M + 1) // 2
+    assert F * items <= 3 * 256
+    return F, Q
+
+
+def _split_items(Z, M):
+    """split_item over a frame's transform Z (n points): for even M, item k
+    <= n/2 gives A[k] = e + u and A[n-k] = conj(e - u) with e = (Z[k] +
+    conj Z[n-k]) / 2, u = W^k (-i) (Z[k] - conj Z[n-k]) / 2, item 0 the real
+    bins 0 and n; for odd M, A[k] = Z[k]."""
+    if M % 2:
+        return Z[..., :(M + 1) // 2]
+    n = M // 2
+    A = np.empty(Z.shape[:-1] + (n + 1,), np.complex64)
+    A[..., 0] = Z[..., 0].real + Z[..., 0].imag
+    A[..., n] = Z[..., 0].real - Z[..., 0].imag
+    k = np.arange(1, n // 2 + 1)
+    zk, zn = Z[..., k], np.conj(Z[..., n - k])
+    e = (zk + zn) / 2
+    u = _twiddles(M)[k] * (-1j * (zk - zn) / 2)
+    A[..., k] = e + u
+    A[..., n - k] = np.conj(e - u)
+    return A
+
+
+def _fused_in_numpy(x, hf, w, M, m, r, T, sms):
+    """analysis_beamform_kernel's tiles: each tile of F frames is Q blocks;
+    rank q sums conj(w[k, c]) A_c over its channels [q C / Q, (q + 1) C / Q)
+    in order, and the tile is the ranks' partials summed in rank order."""
+    C = x.shape[0]
+    F, Q = _fused_tiling(C, T, M, sms)
+    A = _split_items(_analysis_fft_in_numpy(x, hf, M, m, M // r, T, max_radix=8, split=False), M)
+    wc = np.conj(w).astype(np.complex64)
+    y = np.empty((T, M // 2 + 1), np.complex64)
+    for t0 in range(0, T, F):
+        part = []
+        for q in range(Q):
+            acc = np.zeros((min(F, T - t0), M // 2 + 1), np.complex64)
+            for c in range(q * C // Q, (q + 1) * C // Q):
+                acc += wc[:, c] * A[c, t0:t0 + F]
+            part.append(acc)
+        tile = part[0]
+        for p_ in part[1:]:
+            tile = tile + p_
+        y[t0:t0 + F] = tile
+    return y, F, Q
+
+
+@pytest.mark.parametrize("M,r", [(96, 2), (127, 1), (256, 2), (512, 4), (2048, 2)])
+def test_fused_tiles_in_numpy_match_plain(M, r):
+    """7 channels (not a multiple of the cluster's split) on a card of 8 SMs
+    (so the plan splits them over Q = 2 or 4 ranks and, below M = 2048,
+    keeps tiles of several frames), frames not a multiple of F, random
+    prototype and weights."""
+    rng = np.random.default_rng(M + r)
+    m, C = 2, 7
+    cfg = FilterbankConfig(M=M, m=m, r=r)
+    S = 3000 if M < 1024 else 12000
+    T = tfb.num_frames(S, cfg)
+    hf = rng.standard_normal(m * M).astype(np.float32) / 16
+    x = rng.standard_normal((C, S)).astype(np.float32)
+    w = (rng.standard_normal((cfg.num_bins, C)) + 1j * rng.standard_normal((cfg.num_bins, C)))
+    w = w.astype(np.complex64)
+    y, F, Q = _fused_in_numpy(x, hf, w, M, m, r, T, sms=8)
+    assert Q > 1 and C % Q and (M == 2048 or (F > 1 and T % F))
+    ref = cfb.analysis_beamform_plain(torch.as_tensor(x), torch.as_tensor(hf), torch.as_tensor(w),
+                                      M, r, T).numpy()
+    assert rel(y, ref) < 1e-5, (M, F, Q)
 
 
 def test_cpu_tensors_run_plain_and_leave_launch_counters_at_zero():
