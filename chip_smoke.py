@@ -12,7 +12,8 @@ Phases, each of which fails the run loudly:
      the select kernel at the decoders' four pool shapes, bitwise; the GSC
      kernel at 1 and 8 utterances of 8 ch x 1000 frames (error at frames
      40 / 500 / 1000, two chunks threaded through wa0 == one pass) and at
-     2, 16 and 64 channels; the steering kernel at 8 and 16 ch x 1000
+     2, 16, 17 and 64 channels, each time beside its byte bound and its
+     chain floor (estimated); the steering kernel at 8 and 16 ch x 1000
      frames, static and per-frame delays; the banded Viterbi kernel at the
      force-align shape and a batch, bitwise (and at S = 1, 31, 33, 1,024
      and 1,025 states and a single frame); the shapes that raised before:
@@ -25,8 +26,11 @@ Phases, each of which fails the run loudly:
      kernel (unstaged and staged) at M = 65,536 and a prime M, the fused
      kernel also at 7, 63 and 64 channels (not multiples of its cluster's
      split); and, untimed, each kernel's variants for inputs beyond those
-     (delta, B, the select table or the FFT or the IDFT tables in device
-     memory or in slabs);
+     (delta, W, the select table or the FFT's tables in device memory,
+     the synthesis through device memory); the synthesis also on random
+     spectra with imaginary DC and Nyquist parts from a later start, at
+     M = 256 and the odd M = 127; the GSC kernel also at 17 channels, at U
+     = 8 for 2 to 64 channels, and at 1, 2, 5, 10 and 12 frames;
   3. the front end's main path: `DsrPipeline.process` (MVDR) on 4 requests
      of 8 ch x 4 s with GMM scoring, the `entry` forward, and the serving
      beamform (fused analysis+beamform -> synthesis) at 64 ch x 8 s; the
@@ -273,9 +277,9 @@ def main() -> int:
         if main:
             record["analysis"] = res
 
-    def synthesis_case(c, A, g, out_len, label, main, iters=20):
+    def synthesis_case(c, A, g, out_len, label, main, iters=20, start=None):
         C, T, K = A.shape
-        start = c.L - c.D
+        start = c.L - c.D if start is None else start
         # the frames the output samples read: t_lo .. the last sample's frame
         t_lo = max(0, start // c.D - c.L // c.D + 1)
         rows = min(T - 1, (start + out_len - 1) // c.D) - t_lo + 1
@@ -314,9 +318,9 @@ def main() -> int:
     A_d256 = cfb.analysis_plain(x_d256, hf2, cfg_d256.M, cfg_d256.r,
                                 fb.num_frames(x_d256.shape[-1], cfg_d256))
     synthesis_case(cfg_d256, A_d256, gf2, x_d256.shape[-1], "8 ch x 1 s M=512 (D=256)", False)
-    # m r = 32,768: above what a slab block holds (the synthesis raised
-    # there before); every frame's IDFT through device memory, then the
-    # overlap-add; random prototypes, a 2,000-sample signal
+    # m r = 32,768: no tile fits a block; every frame's inverse FFT through
+    # device memory, then the overlap-add; random prototypes, a 2,000-sample
+    # signal
     c4k = FilterbankConfig(M=4096, m=8, r=4096)
     h4k, g4k = (torch.as_tensor(rng.standard_normal(c4k.L).astype(np.float32) / 16, device=dev)
                 for _ in range(2))
@@ -326,6 +330,31 @@ def main() -> int:
                    iters=3)
     del A4k
     torch.cuda.empty_cache()
+    # random spectra, whose DC and Nyquist bins have imaginary parts, from
+    # 5 samples past the default start; also at the odd M = 127 (r = 1).
+    # irfft ignores those parts (torch on the CPU, numpy, the JAX package),
+    # and so does the kernel: its output equals, bit for bit, its output for
+    # the same spectra with them zeroed, which is held to the twin (on the
+    # card the twin's irfft is cuFFT's, which at some shapes does not ignore
+    # them)
+    for c in (cfg, FilterbankConfig(M=127, m=2, r=1)):
+        A_r = torch.view_as_complex(torch.as_tensor(
+            rng.standard_normal((2, 200, c.num_bins, 2)).astype(np.float32), device=dev))
+        check(bool((A_r[..., 0].imag != 0).all() and (A_r[..., -1].imag != 0).all()),
+              "random spectra with imaginary DC and Nyquist")
+        A_h = A_r.clone()
+        A_h[..., 0] = A_h[..., 0].real
+        if c.M % 2 == 0:
+            A_h[..., -1] = A_h[..., -1].real
+        g_r = torch.as_tensor(rng.standard_normal(c.L).astype(np.float32) / 16, device=dev)
+        start_r = c.L - c.D + 5
+        S_r = 199 * c.D + c.L - start_r
+        check(torch.equal(cfb.synthesis(A_r.contiguous(), g_r, c.M, c.m, c.r, start_r, S_r),
+                          cfb.synthesis(A_h.contiguous(), g_r, c.M, c.m, c.r, start_r, S_r)),
+              f"synthesis M={c.M}: the imaginary DC and Nyquist parts change the output")
+        synthesis_case(c, A_h.contiguous(), g_r, S_r,
+                       f"2 ch random spectra M={c.M} m={c.m} r={c.r}, start L-D+5", False,
+                       start=start_r)
 
     # every kernel at every shipped config and a D = 256 one (no timing)
     for c, h, g in [(FilterbankConfig(M=M, m=m, r=r, joint_iters=j), None, None)
@@ -349,9 +378,8 @@ def main() -> int:
               + " / ".join(f"{e:.2e}" for e in errs))
         check(max(errs) <= TOL, f"kernels at M={c.M} m={c.m} r={c.r}")
 
-    # configs whose whole-block synthesis exceeds the card's shared-memory
-    # opt-in, so it takes its IDFT in slabs of bins (the FFTs of the
-    # analysis and the fused kernel take them as any other); random
+    # configs whose direct-IDFT synthesis (before its FFT) exceeded the
+    # card's shared-memory opt-in and took its IDFT in slabs of bins; random
     # prototypes as tests/_torch_parity.py's filterbank_case makes them;
     # 4 ch x 1 s, each kernel timed
     for M, m, r in ((512, 4, 4), (1024, 4, 2), (768, 4, 1), (768, 4, 2)):
@@ -519,56 +547,96 @@ def main() -> int:
     POS8 = np.asarray(ArrayGeometry.circular(N8, 0.10).positions)
     gsc_args = dict(mu=0.05, eps=1e-6, cap=10.0)
 
-    def gsc_case(U, seed, POS):
+    def gsc_case(U, seed, POS, T=T_g):
         N = len(POS)
         r = np.random.default_rng(seed)
         X = torch.view_as_complex(torch.as_tensor(
-            r.standard_normal((U, N, T_g, K, 2)).astype(np.float32), device=dev))
+            r.standard_normal((U, N, T, K, 2)).astype(np.float32), device=dev))
         srcs = r.uniform(-2.0, 2.0, (U, 3)) + np.array([0.0, 2.5, 0.0])
         taus = np.stack([design.steering_delays(POS, p_, 343.0, SR) / SR for p_ in srcs])
         v = bf.steering_vectors(torch.as_tensor(taus.astype(np.float32), device=dev), cfg.M, SR)
         return X.contiguous(), bf.ds_weights(v).contiguous(), bf.blocking_matrix(v).contiguous()
 
+    def gsc_chain_cycles(N):
+        """The chain's dependent latency a frame, estimated from its
+        instructions (csrc/gsc.cu gsc_chain_kernel), not measured: from the
+        last frame's scale, y (an FFMA, ~4 cycles), g y (~4), the update (a
+        multiply and two FFMAs, ~12), |u|^2 in two partial sums of ceil(E /
+        2) entries, two dependent FFMAs each (~8 an entry), their sum (~4),
+        the group's butterfly (~26 a shuffle and add, log2 G of them) and
+        the cap's compare and select (~8); the next frame's u^H z runs
+        beside it.  G lanes a bin (2 from 5 to 16 channels, up to 32
+        above), E entries a lane."""
+        G = 1 if N <= 4 else 2
+        if N > 16:
+            G = 1
+            while G < 32 and 8 * G < N - 1:
+                G *= 2
+        E = -(-(N - 1) // G)
+        return 32 + 8 * -(-E // 2) + 26 * int(math.log2(G))
+
     # U = 1 and 8 at 8 ch (the config-3 path and the JAX package's GSC
-    # measurement); 2 and 16 ch; config 2's 64-ch circular 0.20 m array
-    # (the one-warp-per-bin variant for more than 16 channels)
-    for U, POS in ((1, POS8), (8, POS8),
-                   (1, np.asarray(ArrayGeometry.circular(2, 0.10).positions)),
-                   (1, np.asarray(ArrayGeometry.circular(16, 0.10).positions)),
-                   (1, np.asarray(ArrayGeometry.circular(64, 0.20).positions))):
+    # measurement); 2, 16, 17 (the first count whose bins take more lanes
+    # as channels grow) and config 2's 64-ch circular 0.20 m array, each
+    # timed at U = 1 and held to its twin at U = 8 (300 frames)
+    ring = lambda N: ArrayGeometry.circular(N, 0.20 if N == 64 else 0.10).positions  # noqa: E731
+    for U, POS, T_c in ((1, POS8, T_g), (8, POS8, T_g),
+                        *((u_, np.asarray(ring(N_)), T_g if u_ == 1 else 300)
+                          for N_ in (2, 16, 17, 64) for u_ in (1, 8))):
         Ng = len(POS)
-        X, wq, Bm = gsc_case(U, 100 + U if Ng == 8 else 200 + Ng, POS)
+        seed = 100 + U if Ng == 8 else (200 if U == 1 else 300) + Ng
+        X, wq, Bm = gsc_case(U, seed, POS, T_c)
         kern = lambda: cgsc.gsc_nlms(X, wq, Bm, **gsc_args)          # noqa: E731
         plain = lambda: cgsc.gsc_nlms_plain(X, wq, Bm, **gsc_args)   # noqa: E731
         (Y, wa), (Y_p, wa_p) = kern(), plain()
-        half = T_g // 2
+        half = T_c // 2
         Y1, wa1 = cgsc.gsc_nlms(X[:, :, :half].contiguous(), wq, Bm, **gsc_args)
         Y2, wa2 = cgsc.gsc_nlms(X[:, :, half:].contiguous(), wq, Bm, **gsc_args, wa0=wa1)
         torch.cuda.synchronize()
         err_y, err_wa = rel_err(Y, Y_p), rel_err(wa, wa_p)
         scale = Y_p.abs().max()
-        at = {t: float((Y[:, t - 1] - Y_p[:, t - 1]).abs().max() / scale) for t in (40, 500, 1000)}
+        at = {t: float((Y[:, t - 1] - Y_p[:, t - 1]).abs().max() / scale)
+              for t in (40, T_c // 2, T_c)}
         err_halves = max(rel_err(torch.cat([Y1, Y2], dim=1), Y), rel_err(wa2, wa))
+        label = f"gsc U={U} N={Ng} T={T_c} K={K}"
+        check(err_y <= TOL_ADAPTIVE and err_wa <= TOL_ADAPTIVE,
+              f"{label}: kernel differs from its twin (Y {err_y:.3e}, wa {err_wa:.3e})")
+        check(err_halves <= 1e-5, f"{label}: two halves threaded through wa0 differ from "
+                                  f"one pass by {err_halves:.3e}")
+        errs = (f"{label}: rel err Y {err_y:.2e} wa {err_wa:.2e} (bound {TOL_ADAPTIVE:.0e}); "
+                f"Y error at frames {' / '.join(map(str, at))} "
+                + " / ".join(f"{e:.2e}" for e in at.values())
+                + f"; two halves through wa0 vs one pass {err_halves:.2e}")
+        if T_c != T_g:
+            print(errs)
+            continue
         ms = cuda_ms(kern)
         plain_ms = cuda_ms(plain, iters=2, warmup=1)
         # X read once, wq and B read, Y and wa written; per step and bin
         # 8 N^2 + 28 (N - 1) + 4 operations (yc, z, y, |z|^2, update, norm, cap)
         b_ms, b_by = bound(8 * U * K * (Ng * T_g + Ng + Ng * (Ng - 1) + T_g + Ng - 1),
                            U * K * T_g * (8 * Ng * Ng + 28 * (Ng - 1) + 4))
-        print(f"gsc U={U} N={Ng} T={T_g} K={K}: rel err Y {err_y:.2e} wa {err_wa:.2e} (bound "
-              f"{TOL_ADAPTIVE:.0e}); Y error at frames 40 / 500 / 1000 "
-              + " / ".join(f"{e:.2e}" for e in at.values())
-              + f"; two halves through wa0 vs one pass {err_halves:.2e}; kernel {ms:.4f} ms "
-              f"({ms / T_g * 1e3:.3f} us per frame step)  plain {plain_ms:.4f} ms  library n/a  "
-              f"bound {b_ms:.4f} ms ({b_by})  [{smi}]")
-        check(err_y <= TOL_ADAPTIVE and err_wa <= TOL_ADAPTIVE,
-              f"gsc U={U}: kernel differs from its twin (Y {err_y:.3e}, wa {err_wa:.3e})")
-        check(err_halves <= 1e-5, f"gsc U={U}: two halves threaded through wa0 differ from "
-                                  f"one pass by {err_halves:.3e}")
+        chain_ms = T_g * gsc_chain_cycles(Ng) / 1.98e9 * 1e3
+        print(f"{errs}; kernel {ms:.4f} ms ({ms / T_g * 1e3:.3f} us per frame step)  plain "
+              f"{plain_ms:.4f} ms  library n/a  bound {b_ms:.4f} ms ({b_by}); chain floor "
+              f"estimated at {chain_ms:.4f} ms (~{gsc_chain_cycles(Ng)} cycles a frame at 1,980 "
+              f"MHz, not measured)  [{smi}]")
         if U == 1 and Ng == 8:   # the config-3 path's shape
             record["gsc"] = dict(max_abs_err=float((Y - Y_p).abs().max()), rel_err=err_y, ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=None)
+    # frames fewer than one chunk, fewer than the ring's chunks in flight
+    # (N = 8: 7 frames a chunk, 3 chunks ahead) and a single frame, at 8 and
+    # 64 channels, U = 3
+    short = []
+    for Ng, T_s in ((8, 1), (8, 2), (8, 5), (8, 10), (64, 1), (64, 2), (64, 12)):
+        X, wq, Bm = gsc_case(3, 400 + Ng + T_s, np.asarray(ring(Ng)), T_s)
+        (Y, wa), (Y_p, wa_p) = (f(X, wq, Bm, **gsc_args) for f in (cgsc.gsc_nlms,
+                                                                    cgsc.gsc_nlms_plain))
+        err = max(rel_err(Y, Y_p), rel_err(wa, wa_p))
+        check(err <= TOL_ADAPTIVE, f"gsc U=3 N={Ng} T={T_s}: rel err {err:.3e}")
+        short.append(f"N={Ng} T={T_s} {err:.2e}")
+    print(f"gsc at few frames, U=3, against the twin: {'; '.join(short)}")
 
     # the steering kernel against its twin (the composed steering vectors,
     # DS weights and apply): static delays and a moving source's trajectory
@@ -636,14 +704,15 @@ def main() -> int:
     # twins (no timing): the Viterbi lane kernel at one state, one warp's
     # edges (31, 33 states) and the most warps (1,024), a single frame, and
     # its stride loop (S > 1,024) with delta in device memory (S = 40,000);
-    # the GSC kernel with B read from device memory (200 channels); the
+    # the GSC front kernel with [wq, B] read from device memory (200
+    # channels: 32 lanes a bin); the
     # select kernel with its sort buffer beyond a block's (kcap 9,000) and at
     # 300,000 candidates (kcap 64); the FFTs of the analysis and the fused
     # kernel a block a frame (M = 2048), in one shared buffer with their
     # stages held in registers and no twiddle table (M = 32,768), with their
     # buffers in device memory (M = 65,536) and at a prime M (127), and the
-    # synthesis with the frames' IDFT in device memory (M = 256 m = 8 r = 32,
-    # m r^2 = 8,192)
+    # synthesis through device memory (M = 256 m = 8 r = 32: m r = 256 frames
+    # a sample; M = 32,768: the held stages)
     for U, T_v, S_v in ((3, 70, 1), (2, 70, 31), (2, 70, 33), (2, 70, 1024), (2, 1, 36),
                         (2, 1, 512), (2, 30, 1025), (2, 50, 3000), (2, 40, 9000), (1, 20, 40000)):
         r = np.random.default_rng(S_v)
@@ -685,6 +754,17 @@ def main() -> int:
     (Y, wa), (Y_p, wa_p) = (f(X, wq, Bm, **gsc_args) for f in (cgsc.gsc_nlms, cgsc.gsc_nlms_plain))
     err_g = max(rel_err(Y, Y_p), rel_err(wa, wa_p))
     check(err_g <= TOL_ADAPTIVE, f"gsc N=200: rel err {err_g:.3e}")
+    # above 513 channels (the kernels with the weights in device memory)
+    POS600 = np.asarray(ArrayGeometry.circular(600, 0.50).positions)
+    X = torch.view_as_complex(torch.as_tensor(
+        r.standard_normal((1, 600, 20, 3, 2)).astype(np.float32), device=dev)).contiguous()
+    v = bf.steering_vectors(torch.as_tensor((design.steering_delays(
+        POS600, np.array([0.5, 2.0, 0.0]), 343.0, SR) / SR)[None].astype(np.float32),
+        device=dev), cfg.M, SR)[:, :3]
+    wq, Bm = bf.ds_weights(v).contiguous(), bf.blocking_matrix(v).contiguous()
+    (Y, wa), (Y_p, wa_p) = (f(X, wq, Bm, **gsc_args) for f in (cgsc.gsc_nlms, cgsc.gsc_nlms_plain))
+    err_g600 = max(rel_err(Y, Y_p), rel_err(wa, wa_p))
+    check(err_g600 <= TOL_ADAPTIVE, f"gsc N=600: rel err {err_g600:.3e}")
     for N, kcap in ((40000, 9000), (300000, 64)):
         args = select_case(N, kcap, 40.0, N + kcap)
         same = all(torch.equal(bits(o), bits(r_)) for o, r_ in zip(
@@ -707,8 +787,9 @@ def main() -> int:
             rel_err(cfb.synthesis(A, g, M, m, r_, c.L - c.D, xs.shape[-1]),
                     cfb.synthesis_plain(A, g, M, r_, c.L - c.D, xs.shape[-1])))
     # the FFTs' other routes: buffers in device memory (M = 65,536) and a
-    # prime M (one direct DFT stage); the fused kernel there too, unstaged and
-    # over a staged bank of 2 (bitwise equal), at 7, 63 and 64 channels
+    # prime M (one direct DFT stage), for the analysis and the synthesis; the
+    # fused kernel there too, unstaged and over a staged bank of 2 (bitwise
+    # equal), at 7, 63 and 64 channels
     for M, m, r_, C, secs in ((65536, 2, 2, 1, 8.0), (65536, 2, 2, 7, 2.0), (127, 2, 1, 2, 0.5),
                               (127, 2, 1, 7, 0.5), (127, 2, 1, 63, 0.5), (256, 4, 2, 7, 1.0),
                               (256, 4, 2, 63, 1.0)):
@@ -717,8 +798,13 @@ def main() -> int:
         xs = signal(C, secs)
         T = fb.num_frames(xs.shape[-1], c)
         if C <= 2:
-            errs_x[f"analysis M={M} m={m} r={r_}"] = rel_err(cfb.analysis(xs, h, M, m, r_, T),
-                                                            cfb.analysis_plain(xs, h, M, r_, T))
+            A = cfb.analysis_plain(xs, h, M, r_, T)
+            errs_x[f"analysis M={M} m={m} r={r_}"] = rel_err(cfb.analysis(xs, h, M, m, r_, T), A)
+            # the synthesis's device route with its FFT buffers in device
+            # memory (M = 65,536) and at the prime M
+            errs_x[f"synthesis M={M} m={m} r={r_}"] = rel_err(
+                cfb.synthesis(A, h, M, m, r_, c.L - c.D + 5, xs.shape[-1]),
+                cfb.synthesis_plain(A, h, M, r_, c.L - c.D + 5, xs.shape[-1]))
         if C > 1:
             ws = torch.view_as_complex(torch.as_tensor(
                 rng.standard_normal((c.num_bins, C, 2)).astype(np.float32), device=dev)).contiguous()
@@ -731,7 +817,7 @@ def main() -> int:
                 yf, cfb.analysis_beamform_plain(xs, h, ws, M, r_, T))
     print("kernel variants beyond the main path's shapes: viterbi S = 1 / 31 / 33 / 1,024 / "
           f"1,025 / 3,000 / 9,000 / 40,000, T = 1 and ll 1-3 floats past a 16-byte boundary "
-          f"bitwise; gsc N = 200 rel err {err_g:.2e}; "
+          f"bitwise; gsc N = 200 / 600 rel err {err_g:.2e} / {err_g600:.2e}; "
           "select N = 40,000 kcap 9,000 and N = 300,000 kcap 64 bitwise; filterbank " + ", ".join(
               f"{k} {e:.2e}" for k, e in errs_x.items()) + f" (bound {TOL:.0e})")
     check(max(errs_x.values()) <= TOL, "filterbank kernels beyond the main path's configs")

@@ -1,8 +1,10 @@
 """Build the port's native sources into shared libraries, at first use.
 
 Each source has a plain C interface and becomes one library,
-`_build/lib<name>-<hash>.so`, where the hash covers the source and the
-flags, so an edited source is rebuilt and a built one is reused.  The CUDA
+`_build/lib<name>-<hash>.so`, where the hash covers the flags, the source
+and the headers it includes by `#include "..."` (`csrc/fft.cuh`, shared by
+the analysis and the synthesis), so an edited source or header is rebuilt
+and a built one is reused.  The CUDA
 sources (`csrc/*.cu`) are compiled by `nvcc` for Hopper (`sm_90a`); the
 WFST core (`asr/fsm/csrc/wfst.cpp`, host code) by `g++` with the flags of
 `native/Makefile`.  `library(name)` builds a source if needed and loads it
@@ -16,6 +18,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -65,13 +68,33 @@ def _command(name: str) -> list[str]:
     return [gxx(), *GXX_FLAGS, str(source)]
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(path: pathlib.Path) -> list[pathlib.Path]:
+    """`path` and the files it includes by `#include "..."`, found beside the
+    including file, recursively, each once, in the order first met."""
+    seen: list[pathlib.Path] = []
+    todo = [path]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [p.parent / inc.decode() for inc in _INCLUDE.findall(p.read_bytes())
+                 if (p.parent / inc.decode()).exists()]
+    return seen
+
+
 def target(name: str) -> pathlib.Path:
-    """Where the library of source `name` for its current text and flags is
-    (or will be) built."""
+    """Where the library of source `name` for its current text, the headers
+    it includes and the flags is (or will be) built."""
     source, compiler = SOURCES[name]
     flags = NVCC_FLAGS if compiler == "nvcc" else GXX_FLAGS
     digest = hashlib.sha256(" ".join(flags).encode())
-    digest.update(source.read_bytes())
+    for path in sources_of(source):
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

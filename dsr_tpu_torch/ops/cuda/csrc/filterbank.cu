@@ -1,511 +1,419 @@
-// Oversampled DFT filterbank synthesis for Hopper (sm_90a).  (The analysis
-// and the fused analysis + beamform are FFTs, csrc/analysis.cu.)  Plain C
-// interface, loaded with ctypes by dsr_tpu_torch/ops/cuda/filterbank.py;
-// the entry point launches on the caller's stream, allocates nothing, and
-// returns cudaGetLastError() (or kNoFit: never for a valid config).
+// Oversampled DFT filterbank synthesis for Hopper (sm_90a), as an inverse
+// real FFT of each frame.  (The analysis and the fused analysis + beamform
+// are forward FFTs, csrc/analysis.cu; both sources take the FFT from
+// csrc/fft.cuh.)  Plain C interface, loaded with ctypes by
+// dsr_tpu_torch/ops/cuda/filterbank.py; the entry point launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError() (or
+// kNoFit: never for a valid config).
 //
-// Conventions (the same as dsr_tpu/ops/filterbank.py): M subbands, prototype
-// length L = m*M, hop D = M/r, K = M/2+1 bins, front pad P = L-D.  Synthesis
-// is the irfft of each frame, windowed by gf and overlap-added at hop D;
-// output sample j is the padded-stream sample start + j.  The kernels are
-// D-parametric: one kernel serves all (M, m, r), where the TPU needed a
-// D == 128 kernel and a general one.
+// Replaces (dsr_tpu/ops/pallas/filterbank.py) :710 _synthesis_kernel_v5
+// and :578 _synthesis_kernel: one kernel for every M, m and D.
 //
-// Replaces (dsr_tpu/ops/pallas/filterbank.py) _synthesis_kernel_v5 and
-// _synthesis_kernel.
+// The function (the conventions of dsr_tpu/ops/filterbank.py): M subbands,
+// prototype length L = m*M, hop D = M/r, K = M/2+1 bins.  Frame t's
+// samples are v_t = irfft(A[t], n = M), windowed by gf and overlap-added at
+// hop D; output sample j is padded-stream sample s = start + j:
+//     y[s] = sum_{jj < m r} gf[d + jj D] v_{floor(s/D) - jj}[(jj mod r) D + d],
+// d = s mod D, frames outside [0, T) zero.
 //
-// What bounds it on this card: the IDFT is evaluated directly, O(M) per
-// sample index, as the TPU kernels did with matmuls; at M = 256 that is
-// far above the card's flop/byte balance, so operations bound it, while the
-// function itself needs only a real FFT per frame and its least time is set
-// by bytes (chip_smoke.py prints both).  This version runs the direct IDFT
-// as FP32 FMAs on the CUDA cores, as small register-tiled matrix products
-// out of shared memory:
-//   - each block builds its samples' IDFT columns once, from a length-M
-//     twiddle table indexed by (n*k) mod M;
-//   - a thread owns 1 frame x 8 IDFT indices in registers, so each
-//     shared-memory load feeds several FMAs (measured on the card, the loop
-//     is bound by instruction issue rather than by shared-memory bandwidth);
-//   - the blocks split each tile's samples by residue mod D, so a short
-//     output still spreads over the card, and do the overlap-add as a
-//     gather from shared memory: no atomics, a deterministic result.
+// The inverse transform, for even M, is an n = M/2 point complex FFT: the
+// K bins are packed into
+//     Z[k] = ((A[k] + conj A[n-k]) + i e^{2 pi i k/M} (A[k] - conj A[n-k])) / M,
+// k < n, whose inverse DFT z gives v[2j] = Re z[j], v[2j+1] = Im z[j].
+// For odd M, the M-point inverse DFT of the Hermitian extension
+// (A[M-k] = conj A[k]) / M.  irfft ignores the imaginary parts of the DC
+// and (even M) Nyquist bins, so the pack drops them.  The inverse DFT is
+// the analysis's forward Stockham FFT run on the conjugate of Z (its
+// result read back conjugated): the same plan, stages and twiddle table of
+// e^{-2 pi i j / M} (sincospif, exact zeros at the quarter turns), so
+// there is one FFT code in the repository.
 //
-// A config whose block does not fit shared memory that way (M >= 768, large
-// m r^2) runs the "slab" kernel below: the IDFT sum over bins in slabs,
-// with fewer residues per block when needed; without room for the twiddle
-// table (M above ~20,000), each IDFT entry is computed directly, with the
-// same sincospi, so the same value.  The main path's configs never reach
-// it, so its kernel keeps the simpler layout and its register budget.
-// A synthesis whose slab block cannot hold the frames' IDFT (m r^2 above
-// ~7,000, e.g. M = 256 m = 8 r = 32) takes two kernels through device
-// memory: every frame's IDFT at all M indices into the caller's scratch,
-// then the overlap-add as a gather, one warp per output sample.  (A slab
-// block holds the IDFT of the m r frames behind its samples, so its blocks
-// recompute each frame's IDFT about m r / (its tile's frames) times, and
-// holding that IDFT in device memory would need, at M = 4096 m = 8 r =
-// 4096, 4 GB per block.)
+// What bounds it on this card: each frame's transform is ~2.5 M log2 M
+// operations against 8 K bytes of spectrum read, and the overlap-add 2 m r
+// operations a sample against 4 bytes written, so bytes bound the function
+// (the serving output, 1 ch x 8 s at M = 256: 1.5 MB, 0.0005 ms at 3.35
+// TB/s); what is left above that is a block's latency (the spectra's loads,
+// a barrier a stage, the gather).  Two routes:
+//   - tiles: a block produces the samples of F consecutive output frames
+//     (hop periods) of one channel.  It transforms the F + m r - 1 frames
+//     they read (the tile's and the m r - 1 before it: the halo, recomputed
+//     by the neighbouring block), ping-pong in shared memory (padded
+//     buffers, the fused kernel's radix-8 plan), unpacks each frame's M
+//     samples into the free buffer, and overlap-adds as a gather, one
+//     thread per output sample summing its m r terms in a fixed order: no
+//     atomics, a deterministic result.  F is chosen for about one block an
+//     SM, at most kSynTilePoints points a tile;
+//   - when even F = 1 does not fit shared memory (large M, or m r^2 large:
+//     M = 4096, m = 8, r = 4096 reads 32,768 frames a sample), every frame
+//     the output needs is transformed by the same pack, FFT and unpack into
+//     the caller's device scratch (several frames a block, or a block a
+//     frame with the stages held in registers or, beyond what shared memory
+//     holds, with the buffers in the scratch), then synthesis_ola_kernel
+//     sums each sample's m r terms in double, a warp's 32 samples walking
+//     the rows they read so that each row's reads are coalesced (split over
+//     the rows, with a second kernel adding the partial sums in a fixed
+//     order, when m r is large).
+// At the main path's M = 256 the tiles' stages are the fused kernel's
+// constant ones (stages_pow2, fft.cuh).
 
 #include <cuda_runtime.h>
 
+#include "fft.cuh"
+
 namespace {
 
-constexpr int kNoFit = -1;        // returned when the config's tile exceeds shared memory
+constexpr int kNoFit = -1;
+constexpr int kSynTilePoints = 4096;   // a tile's transforms, both routes: at most this many points
+                                       // (or the frames one output frame reads, or one frame)
+constexpr int kIdftBlocksPerSm = 4;    // the device-memory route's IDFT grid, at most
+constexpr int kOlaWarpsPerSm = 32;     // the overlap-add's grid: about this many warps an SM
+constexpr int kOlaRowsMin = 64;        // rows a warp walks, at least, when they are split
 
-// ---- geometry --------------------------------------------------------------
-constexpr int kThreadsS = 256;    // 32 frames (lanes) x 8 warps of 8 samples
-constexpr int kDS = 32;           // residues mod D per block
+// Frames t0 .. t0 + nf - 1 of one channel's spectra Ac (T, K), packed for
+// the inverse transform into b (frame f at points f n .. f n + n - 1): the
+// conjugate of Z[k], the note's pack (even M) or the Hermitian extension
+// (odd M), each scaled by 1 / M; zeros outside [0, T).  A thread loads the
+// spectra of kPackBatch of its points before it packs them, so that many
+// loads are in flight (one at a time, their latency set the tile's).
+constexpr int kPackBatch = 8;
 
-// tw[j] = (cos 2 pi j / M, sin 2 pi j / M); sincospi in double keeps the
-// exact zeros (sin at j = M/2, cos at j = M/4) that irfft relies on.
-__device__ void fill_twiddles(float2* tw, int M) {
-  for (int j = threadIdx.x; j < M; j += blockDim.x) {
-    double s, c;
-    sincospi(2.0 * j / M, &s, &c);
-    tw[j] = make_float2(static_cast<float>(c), static_cast<float>(s));
+template <bool kPad>
+__device__ __forceinline__ void pack(float2* b, const float2* __restrict__ Ac, int T, int M,
+                                     long long t0, int nf, const Plan& pl, const Twiddle& tw) {
+  const int n = pl.n, K = M / 2 + 1, total = nf * n;
+  const float sc = 1.f / M;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kPackBatch * blockDim.x) {
+    float2 a[kPackBatch], c[kPackBatch];   // A[k] and A[n - k] (odd M: A[k] or A[M - k])
+#pragma unroll
+    for (int j = 0; j < kPackBatch; ++j) {
+      const int e = e0 + j * blockDim.x;
+      a[j] = c[j] = make_float2(0.f, 0.f);
+      if (e < total) {
+        const int f = pl.by_n.div(e), k = e - f * n;
+        const long long t = t0 + f;
+        if (t >= 0 && t < T) {
+          const float2* at_t = Ac + t * K;
+          if (pl.s == 2) {
+            a[j] = __ldg(at_t + k);
+            c[j] = __ldg(at_t + n - k);
+          } else {
+            a[j] = __ldg(at_t + (k < K ? k : M - k));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPackBatch; ++j) {
+      const int e = e0 + j * blockDim.x;
+      if (e >= total) break;
+      const int k = e - pl.by_n.div(e) * n;
+      float2 z;
+      if (pl.s == 2) {
+        float2 p0 = a[j], p1 = c[j];
+        if (k == 0) {   // DC and Nyquist: real parts only
+          p0.y = 0.f;
+          p1.y = 0.f;
+        }
+        const float2 p = make_float2(p0.x + p1.x, p0.y - p1.y);   // A[k] + conj A[n-k]
+        const float2 q = make_float2(p0.x - p1.x, p0.y + p1.y);   // A[k] - conj A[n-k]
+        const float2 w = tw(k);                                    // e^{-2 pi i k / M}
+        const float2 wq = make_float2(w.x * q.x + w.y * q.y, w.x * q.y - w.y * q.x);  // conj(w) q
+        z = make_float2(p.x - wq.y, p.y + wq.x);                   // p + i conj(w) q
+      } else {
+        z = a[j];
+        if (k >= K) z.y = -z.y;   // A[M - k] = conj A[k]
+        if (k == 0) z.y = 0.f;
+      }
+      b[at<kPad>(e)] = make_float2(z.x * sc, -z.y * sc);
+    }
   }
 }
 
-// ---- synthesis ------------------------------------------------------------
-// A block produces the padded-stream samples s = (b*nt + fb)*D + d for
-// fb < nt and d in its residue group [d0, d0 + kDS), from the nf = nt+mr-1
-// frames overlapping them.  Sample s takes frame floor(s/D) - jj (jj < mr)
-// at offset d + jj*D, whose IDFT index is d + (jj mod r)*D: so the block
-// needs the IDFT at NQ = r*kDS indices n only.
-__host__ __device__ int synthesis_frames(int mr) { return 32 * ((mr + 15) / 16); }
-
-struct SynthLayout {
-  int K, NQ, nf, AS, VS;
-  int fs, as, v, tw, total;  // offsets (floats)
-  __host__ __device__ SynthLayout(int M, int m, int D) {
-    const int r = M / D, mr = m * r;
-    K = M / 2 + 1;
-    NQ = r * kDS;
-    nf = synthesis_frames(mr);
-    AS = 2 * nf + 4;   // spectra row stride: float4-aligned, fewer bank conflicts
-    VS = NQ + 1;
-    fs = 0;                       // Fs (K, 2*NQ): [cos, sin] of 2 pi n k / M
-    as = fs + K * 2 * NQ;         // AsT (K, AS): irfft-scaled spectra, [re, im] per frame
-    v = as + K * AS;              // v (nf, VS): the frames' IDFT at the block's indices
-    tw = v + ((nf * VS + 1) & ~1);
-    total = tw + 2 * M;
+// The nf frames' inverse transforms, from the stages' output Z (the forward
+// FFT of the conjugate: z = conj Z), as M real samples a frame into rows
+// of v (row stride M): v[2j] = Re z[j], v[2j+1] = Im z[j] (even M), v[p] =
+// Re z[p] (odd M).  Point e = f n + j of Z is row f's sample 2 e - f M (even
+// M) or e - f M (odd M), so no division is needed.
+template <bool kPad>
+__device__ __forceinline__ void unpack(float* v, const float2* Z, int nf, const Plan& pl) {
+  for (int e = threadIdx.x; e < nf * pl.n; e += blockDim.x) {
+    const float2 z = Z[at<kPad>(e)];
+    if (pl.s == 2)
+      *reinterpret_cast<float2*>(v + 2ll * e) = make_float2(z.x, -z.y);
+    else
+      v[e] = z.x;
   }
-};
+}
 
-// grid (tiles, C, residue groups).  A: (C, T, K) complex, y: (C, out_len).
+// ---- tiles ------------------------------------------------------------------
+
+// grid (tiles, C).  Tile b holds output frames tf = tf0 + b F .. + F - 1
+// (samples tf D .. tf D + D - 1) and transforms frames tf0 + b F - (m r - 1)
+// onwards, nf = F + m r - 1 of them.  A: (C, T, K) complex, y: (C,
+// out_len).  Shared memory: the twiddle table (M entries) when `table`,
+// then two padded buffers of nf n points.
 __global__ void __launch_bounds__(kThreadsS)
 synthesis_kernel(const float2* __restrict__ A, const float* __restrict__ gf,
-                 float* __restrict__ y, int T, int M, int m, int D, int b0,
-                 long long start, int out_len) {
-  extern __shared__ __align__(16) float smem[];
-  const SynthLayout lay(M, m, D);
-  const int K = lay.K, NQ = lay.NQ, nf = lay.nf, AS = lay.AS, VS = lay.VS;
-  const int r = M / D, mr = m * r, nt = nf - mr + 1;
-  float* Fs = smem + lay.fs;
-  float* AsT = smem + lay.as;
-  float* v = smem + lay.v;
-  float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
-  const int c = blockIdx.y, d0 = blockIdx.z * kDS;
-  const long long b = b0 + blockIdx.x;
-  const long long tfirst = b * nt - (mr - 1);   // frame of local row 0
-  const int tid = threadIdx.x;
+                 float* __restrict__ y, int T, int M, int m, int D, int F, long long tf0,
+                 long long start, int out_len, int table, Plan pl, FastDiv by_d) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int n = pl.n, K = M / 2 + 1, mr = m * (M / D), nf = F + mr - 1;
+  float2* b0 = smem + (table ? M : 0);
+  float2* b1 = b0 + padded(nf * n);
+  const Twiddle tw{smem, M, table != 0};
+  const int c = blockIdx.y;
+  const long long tf_b = tf0 + static_cast<long long>(blockIdx.x) * F;
 
-  fill_twiddles(tw, M);
-  // irfft scale folded into the staged spectra: 1/M at DC and (M even)
-  // Nyquist, 2/M elsewhere.  Frames outside [0, T) are zero.
-  const float2* Ac = A + static_cast<long long>(c) * T * K;
-  for (int e = tid; e < nf * K; e += blockDim.x) {
-    const int fl = e / K;
-    const int k = e - fl * K;
-    const long long t = tfirst + fl;
-    float2 a = make_float2(0.f, 0.f);
-    if (t >= 0 && t < T) {
-      a = Ac[t * K + k];
-      const float s = (k == 0 || 2 * k == M) ? 1.f / M : 2.f / M;
-      a.x *= s;
-      a.y *= s;
-    }
-    *reinterpret_cast<float2*>(AsT + k * AS + 2 * fl) = a;
-  }
-  __syncthreads();
-  for (int e = tid; e < K * NQ; e += blockDim.x) {
-    const int k = e / NQ;
-    const int nl = e - k * NQ;
-    const int d = d0 + nl % kDS;
-    const int n = (nl / kDS) * D + d;
-    const float2 t = d < D ? tw[(n * k) % M] : make_float2(0.f, 0.f);
-    *reinterpret_cast<float2*>(Fs + k * 2 * NQ + 2 * nl) = t;
-  }
-  __syncthreads();
-
-  // v[f][nl] = sum_k Re A[f,k] cos(2 pi n k / M) - Im A[f,k] sin(2 pi n k / M);
-  // a thread takes frame `lane` and the warp's 8 indices, so all lanes read
-  // the same Fs entries (a broadcast) and neighbouring frames of AsT.
-  const int lane = tid % 32, warp = tid / 32;
-  for (int fl = lane; fl < nf; fl += 32) {
-    for (int nb = warp; 8 * nb < NQ; nb += kThreadsS / 32) {
-      float acc[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-      const float2* ap = reinterpret_cast<const float2*>(AsT) + fl;
-      const float4* fq = reinterpret_cast<const float4*>(Fs) + 4 * nb;
-#pragma unroll 2
-      for (int k = 0; k < K; ++k) {
-        const float2 a = ap[k * (AS / 2)];
-        const float4* f = fq + k * (NQ / 2);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 fk = f[q];
-          acc[2 * q] = fmaf(a.x, fk.x, fmaf(-a.y, fk.y, acc[2 * q]));
-          acc[2 * q + 1] = fmaf(a.x, fk.z, fmaf(-a.y, fk.w, acc[2 * q + 1]));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[fl * VS + 8 * nb + j] = acc[j];
-    }
-  }
-  __syncthreads();
-
-  // Overlap-add as a gather: sample s = (b*nt + fb)*D + d takes frames
-  // floor(s/D) - jj, jj < mr, local row fb + mr - 1 - jj.
-  float* yc = y + static_cast<long long>(c) * out_len;
-  for (int e = tid; e < nt * kDS; e += blockDim.x) {
-    const int fb = e / kDS;
-    const int dl = e - fb * kDS;
-    const int d = d0 + dl;
-    const long long j_out = (b * nt + fb) * D + d - start;
-    if (d >= D || j_out < 0 || j_out >= out_len) continue;
-    float acc = 0.f;
-    for (int jj = 0; jj < mr; ++jj)
-      acc = fmaf(__ldg(gf + d + jj * D), v[(fb + mr - 1 - jj) * VS + (jj % r) * kDS + dl], acc);
-    yc[j_out] = acc;
-  }
-}
-
-// ---- slab kernel: configs whose block does not fit as above ----------------
-
-// (cos, sin) of 2 pi idx / M: the table entry (kTable), or the same
-// sincospi that filled the table.
-template <bool kTable>
-__device__ __forceinline__ float2 twiddle(const float2* tw, int idx, int M) {
-  if constexpr (kTable) {
-    return tw[idx];
-  } else {
-    double sn, cs;
-    sincospi(2.0 * idx / M, &sn, &cs);
-    return make_float2(static_cast<float>(cs), static_cast<float>(sn));
-  }
-}
-
-// synthesis_kernel in slabs of KS bins, each slab's spectra and DFT columns
-// staged in turn and its part added to the frames' IDFT v; ds residues per
-// block (a power of two, 8 to kDS).  The layout, in floats of shared memory:
-//   Fs  (KS, 2 NQ)  [cos, sin] of 2 pi n k / M for the slab's bins
-//   AsT (KS, AS)    the slab's irfft-scaled spectra, [re, im] per frame
-//   v   (nf, VS)    the frames' IDFT at the block's indices
-//   tw  (2M)        the twiddle table, when use_tw
-struct SynLayout {
-  int ds, nf, KS, use_tw;
-  int ds_shift, NQ, AS, VS, as, v, tw, total;  // log2(ds), sizes, offsets (floats)
-  __host__ __device__ SynLayout() {}
-  __host__ __device__ SynLayout(int M, int r, int ds_, int nf_, int KS_, int use_tw_)
-      : ds(ds_), nf(nf_), KS(KS_), use_tw(use_tw_) {
-    for (ds_shift = 0; (1 << ds_shift) < ds; ++ds_shift) {
-    }
-    NQ = r * ds;
-    AS = 2 * nf + 4;
-    VS = NQ + 1;
-    as = KS * 2 * NQ;
-    v = as + KS * AS;
-    tw = v + ((nf * VS + 1) & ~1);
-    total = tw + (use_tw ? 2 * M : 0);
-  }
-};
-
-// grid (tiles, C, residue groups).  A: (C, T, K) complex, y: (C, out_len).
-template <bool kTable>
-__global__ void __launch_bounds__(kThreadsS)
-synthesis_slab_kernel(const float2* __restrict__ A, const float* __restrict__ gf,
-                      float* __restrict__ y, int T, int M, int m, int D, int b0,
-                      long long start, int out_len, SynLayout lay) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = M / 2 + 1, NQ = lay.NQ, nf = lay.nf, AS = lay.AS, VS = lay.VS, ds = lay.ds;
-  const int r = M / D, mr = m * r, nt = nf - mr + 1;
-  float* Fs = smem;
-  float* AsT = smem + lay.as;
-  float* v = smem + lay.v;
-  float2* tw = reinterpret_cast<float2*>(smem + lay.tw);
-  const int c = blockIdx.y, d0 = blockIdx.z * ds;
-  const long long b = b0 + blockIdx.x;
-  const long long tfirst = b * nt - (mr - 1);   // frame of local row 0
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const float2* Ac = A + static_cast<long long>(c) * T * K;
-
-  if constexpr (kTable) fill_twiddles(tw, M);
-  for (int ka = 0; ka < K; ka += lay.KS) {
-    const int ks = min(lay.KS, K - ka);
-    __syncthreads();   // the twiddles are in place; the last slab is read
-    for (int e = tid; e < nf * ks; e += blockDim.x) {
-      const int fl = e / ks;
-      const int kl = e - fl * ks;
-      const int k = ka + kl;
-      const long long t = tfirst + fl;
-      float2 a = make_float2(0.f, 0.f);
-      if (t >= 0 && t < T) {
-        a = Ac[t * K + k];
-        const float sc = (k == 0 || 2 * k == M) ? 1.f / M : 2.f / M;
-        a.x *= sc;
-        a.y *= sc;
-      }
-      *reinterpret_cast<float2*>(AsT + kl * AS + 2 * fl) = a;
-    }
-    for (int e = tid; e < ks * NQ; e += blockDim.x) {
-      const int kl = e / NQ;
-      const int nl = e - kl * NQ;
-      const int d = d0 + (nl & (ds - 1));
-      const int n = (nl >> lay.ds_shift) * D + d;
-      const float2 t = d < D ? twiddle<kTable>(tw, static_cast<int>(
-                                              static_cast<long long>(n) * (ka + kl) % M), M)
-                             : make_float2(0.f, 0.f);
-      *reinterpret_cast<float2*>(Fs + kl * 2 * NQ + 2 * nl) = t;
-    }
+  if (table) {
+    for (int j = threadIdx.x; j < M; j += blockDim.x) smem[j] = twiddle(j, M);
     __syncthreads();
-    for (int fl = lane; fl < nf; fl += 32) {
-      for (int nb = warp; 8 * nb < NQ; nb += kThreadsS / 32) {
-        float acc[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-        const float2* ap = reinterpret_cast<const float2*>(AsT) + fl;
-        const float4* fq = reinterpret_cast<const float4*>(Fs) + 4 * nb;
-#pragma unroll 2
-        for (int k = 0; k < ks; ++k) {
-          const float2 a = ap[k * (AS / 2)];
-          const float4* f = fq + k * (NQ / 2);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 fk = f[q];
-            acc[2 * q] = fmaf(a.x, fk.x, fmaf(-a.y, fk.y, acc[2 * q]));
-            acc[2 * q + 1] = fmaf(a.x, fk.z, fmaf(-a.y, fk.w, acc[2 * q + 1]));
-          }
-        }
-        float* vp = v + fl * VS + 8 * nb;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) vp[j] = ka == 0 ? acc[j] : vp[j] + acc[j];
-      }
-    }
   }
+  pack<true>(b0, A + static_cast<long long>(c) * T * K, T, M, tf_b - (mr - 1), nf, pl, tw);
+  __syncthreads();
+  // the stages (constant ones at the main path's M = 256)
+  const float2* Z = M == 256 ? stages_pow2<128, 1, true>(b0, b1, nf, tw)
+                             : run_stages<false, 8, true>(b0, b1, nf, pl, tw);
+  float* v = reinterpret_cast<float*>(Z == b0 ? b1 : b0);   // row f: frame tf_b - (mr - 1) + f
+  unpack<true>(v, Z, nf, pl);
   __syncthreads();
 
+  // sample (fb, d) takes frames tf_b + fb - jj, jj < mr: rows fb + mr - 1 - jj
   float* yc = y + static_cast<long long>(c) * out_len;
-  for (int e = tid; e < nt * ds; e += blockDim.x) {
-    const int fb = e >> lay.ds_shift;
-    const int dl = e - fb * ds;
-    const int d = d0 + dl;
-    const long long j_out = (b * nt + fb) * D + d - start;
-    if (d >= D || j_out < 0 || j_out >= out_len) continue;
+  for (int e = threadIdx.x; e < F * D; e += blockDim.x) {
+    const int fb = by_d.div(e), d = e - fb * D;
+    const long long j = (tf_b + fb) * D + d - start;
+    if (j < 0 || j >= out_len) continue;
+    const float* row = v + (fb + mr - 1) * M;
     float acc = 0.f;
-    for (int jj = 0; jj < mr; ++jj)
-      acc = fmaf(__ldg(gf + d + jj * D), v[(fb + mr - 1 - jj) * VS + (jj % r) * ds + dl], acc);
-    yc[j_out] = acc;
+    int q = d;   // (jj D + d) mod M = (jj mod r) D + d
+#pragma unroll 4
+    for (int jj = 0; jj < mr; ++jj) {
+      acc = fmaf(__ldg(gf + d + jj * D), row[q], acc);
+      row -= M;
+      q += D;
+      if (q >= M) q -= M;
+    }
+    yc[j] = acc;
   }
 }
 
-// ---- synthesis through device memory ---------------------------------------
-// For configs whose slab block does not fit (m r^2 above ~7,000).  Rows t_lo ..
-// t_lo + nrows - 1 of the frames' IDFT go to v (C, nrows, M) in device
-// memory; frames outside [0, T) are zero.
-constexpr int kGF = 32;    // frames per IDFT block
-constexpr int kGN = 256;   // IDFT indices per block, one per thread
-constexpr int kGK = 32;    // bins per staged slab of spectra
+// ---- through device memory --------------------------------------------------
 
-// v[c][f][n] = sum_k Re A cos(2 pi n k / M) - Im A sin(2 pi n k / M), A
-// irfft-scaled.  grid (row tiles, index groups, C).  A thread owns index n
-// and kGF frames; the block's spectra slab is read as a broadcast.
-template <bool kTable>
-__global__ void __launch_bounds__(kGN)
-synthesis_idft_kernel(const float2* __restrict__ A, float* __restrict__ v, int T, int M,
-                      long long t_lo, int nrows) {
-  extern __shared__ __align__(16) float smem[];
-  float2* As = reinterpret_cast<float2*>(smem);   // (kGK, kGF)
-  float2* tw = As + kGK * kGF;                     // (M,), kTable
-  const int K = M / 2 + 1, c = blockIdx.z, f0 = blockIdx.x * kGF;
-  const int n = blockIdx.y * kGN + threadIdx.x;
-  const int step = n < M ? n : 0;
-  const float2* Ac = A + static_cast<long long>(c) * T * K;
-  if constexpr (kTable) fill_twiddles(tw, M);
-  float acc[kGF];
-#pragma unroll
-  for (int f = 0; f < kGF; ++f) acc[f] = 0.f;
-  int idx = 0;   // (n k) mod M, stepped by n
-  for (int ka = 0; ka < K; ka += kGK) {
-    const int ks = min(kGK, K - ka);
-    __syncthreads();   // the twiddles are in place; the last slab is read
-    for (int e = threadIdx.x; e < kGK * kGF; e += blockDim.x) {
-      const int kl = e / kGF, fl = e - kl * kGF;
-      const long long t = t_lo + f0 + fl;
-      float2 a = make_float2(0.f, 0.f);
-      if (kl < ks && f0 + fl < nrows && t >= 0 && t < T) {
-        const int k = ka + kl;
-        a = Ac[t * K + k];
-        const float sc = (k == 0 || 2 * k == M) ? 1.f / M : 2.f / M;
-        a.x *= sc;
-        a.y *= sc;
-      }
-      As[e] = a;
-    }
+// Rows t_lo .. t_lo + nrows - 1 of the frames' inverse transforms into v
+// (C, nrows, M), tiles of F rows (grid-stride).  The buffers: shared memory
+// after the twiddle table (M entries, when `table`), or 2 padded(F n)
+// points a block at gbuf; kHeldLayout: one frame a block in one buffer,
+// the stages held in registers.
+template <bool kHeldLayout>
+__global__ void __launch_bounds__(kHeldLayout ? kThreadsH : kThreadsS)
+synthesis_idft_kernel(const float2* __restrict__ A, float* __restrict__ v, int C, int T, int M,
+                      long long t_lo, int nrows, int F, int table, Plan pl,
+                      float2* __restrict__ gbuf) {
+  extern __shared__ __align__(16) float2 smem[];
+  constexpr bool kPad = !kHeldLayout;
+  const int n = pl.n, K = M / 2 + 1, ntile = (nrows + F - 1) / F;
+  const int nb = kPad ? padded(F * n) : F * n;
+  float2* b0 = gbuf ? gbuf + 2ll * nb * blockIdx.x : smem + (table ? M : 0);
+  float2* b1 = b0 + nb;
+  const Twiddle tw{smem, M, table != 0};
+  if (table) {
+    for (int j = threadIdx.x; j < M; j += blockDim.x) smem[j] = twiddle(j, M);
     __syncthreads();
-    const float4* a4 = reinterpret_cast<const float4*>(As);
-    for (int kl = 0; kl < ks; ++kl) {
-      const float2 t = twiddle<kTable>(tw, idx, M);
-      idx += step;
-      if (idx >= M) idx -= M;
-#pragma unroll
-      for (int f = 0; f < kGF; f += 2) {
-        const float4 a = a4[(kl * kGF + f) / 2];
-        acc[f] = fmaf(a.x, t.x, fmaf(-a.y, t.y, acc[f]));
-        acc[f + 1] = fmaf(a.z, t.x, fmaf(-a.w, t.y, acc[f + 1]));
-      }
-    }
   }
-  if (n >= M) return;
-  float* vc = v + static_cast<long long>(c) * nrows * M;
-#pragma unroll
-  for (int f = 0; f < kGF; ++f)
-    if (f0 + f < nrows) vc[static_cast<long long>(f0 + f) * M + n] = acc[f];
+  for (int tile = blockIdx.x; tile < C * ntile; tile += gridDim.x) {
+    const int c = tile / ntile, f0 = (tile - c * ntile) * F, nf = min(F, nrows - f0);
+    pack<kPad>(b0, A + static_cast<long long>(c) * T * K, T, M, t_lo + f0, nf, pl, tw);
+    __syncthreads();
+    const float2* Z = run_stages<kHeldLayout, 8, kPad>(b0, b1, nf, pl, tw);
+    unpack<kPad>(v + (static_cast<long long>(c) * nrows + f0) * M, Z, nf, pl);
+    __syncthreads();   // the buffers are free for the next tile
+  }
 }
 
-// y[c][j] = sum_{jj < mr} gf[d + jj D] v[t - jj][(jj mod r) D + d], padded-
-// stream sample s = start + j = t D + d; one warp per sample, its lanes
-// taking jj = lane, lane + 32, ..., summed in double (the sum has up to m r
-// terms; the gather reads device memory, so the double adds cost nothing
-// measurable).  grid (ceil(out_len / 8), C), 256 threads.
+// The overlap-add from the rows, as frame rho's scatter read backwards:
+// y[c][j] = sum over rows rho of gf[p] v[rho][p mod M], p = s - rho D in
+// [0, L), padded-stream sample s = start + j, summed in double over rho
+// ascending.  A warp takes 32 consecutive samples and walks the rows their
+// terms lie in: at a row, its lanes read 32 consecutive columns (p mod M
+// steps by one from sample to sample), so every read is coalesced (a warp
+// a sample, its lanes over the terms, read one row a lane).  Where a warp
+// has many rows (m r large and D small: M = 4096, r = 4096 gives 32,768),
+// split z of nsplit takes a share of them and writes its partial sums to
+// part (nsplit, C, out_len); synthesis_ola_sum_kernel then adds them in
+// split order, a fixed order.  grid (ceil(out_len / 256), C, nsplit), 256
+// threads.
 __global__ void __launch_bounds__(256)
 synthesis_ola_kernel(const float* __restrict__ v, const float* __restrict__ gf,
-                     float* __restrict__ y, int T, int M, int m, int D, long long t_lo,
-                     int nrows, long long start, int out_len) {
-  const long long j = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32, c = blockIdx.y;
-  if (j >= out_len) return;
-  const long long s = start + j, tf = s / D;
-  const int d = static_cast<int>(s - tf * D), r = M / D, mr = m * r;
-  const float* vc = v + static_cast<long long>(c) * nrows * M;
-  double acc = 0.0;   // up to m r terms a sample (32,768 at M = 4096 r = 4096)
-  for (int jj = lane; jj < mr; jj += 32) {
-    const long long t = tf - jj;
-    if (t < 0) break;
-    if (t < T)
-      acc = fma(static_cast<double>(__ldg(gf + d + jj * D)),
-                static_cast<double>(__ldg(vc + (t - t_lo) * M + (jj % r) * D + d)), acc);
-  }
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if (lane == 0) y[static_cast<long long>(c) * out_len + j] = static_cast<float>(acc);
-}
-
-// The rows of the frames' IDFT the samples [start, start + out_len) need:
-// frames t_lo .. floor((start + out_len - 1) / D).
-void synthesis_rows(int M, int m, int D, long long start, int out_len, long long* t_lo,
-                    long long* nrows) {
-  const long long mr = static_cast<long long>(m) * (M / D);
-  const long long tf0 = start / D, tf1 = (start + out_len - 1) / D;
-  *t_lo = tf0 - mr + 1 > 0 ? tf0 - mr + 1 : 0;
-  *nrows = tf1 - *t_lo + 1;
-}
-
-// The largest dynamic shared memory a block of this device may opt in to.
-int smem_optin(int* bytes) {
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return static_cast<int>(e);
-}
-
-// Whether a slab block fits at all: its smallest layout (one bin per slab,
-// 8 residues, mr frames, no twiddle table), counted in 64 bits.  Above it
-// the layouts' int offsets could overflow, and neither block fits.
-bool synthesis_block_fits(int M, int m, int D, int budget) {
-  const long long r = M / D, mr = m * r;
-  return 16 * r + 2 * mr + 4 + mr * (8 * r + 1) <= budget;
-}
-
-// The slab synthesis layout, in order of preference: the twiddle table, 32
-// residues per block, tiles of synthesis_frames(mr) frames, and the most
-// bins per slab; the first choice with slabs of at least min(K, 32) bins,
-// else the first that fits at all.  0 and the layout, kNoFit, or a CUDA
-// error.
-int synthesis_slab_layout(int M, int m, int D, SynLayout* lay) {
-  int optin;
-  const int rc = smem_optin(&optin);
-  if (rc) return rc;
-  const int budget = optin / 4;
-  if (!synthesis_block_fits(M, m, D, budget)) return kNoFit;
-  const int r = M / D, mr = m * r, K = M / 2 + 1;
-  const int frames[2] = {synthesis_frames(mr), mr};
-  for (int pass = 0; pass < 2; ++pass) {
-    const int want = pass == 0 ? (K < 32 ? K : 32) : 1;
-    for (int use_tw = 1; use_tw >= 0; --use_tw)
-      for (int ds = kDS; ds >= 8; ds /= 2)
-        for (int fi = 0; fi < 2; ++fi) {
-          const SynLayout one(M, r, ds, frames[fi], 1, use_tw);
-          const int per = 2 * one.NQ + one.AS;
-          int ks = (budget - (one.total - per)) / per;
-          ks = ks < K ? ks : K;
-          if (ks >= want) {
-            *lay = SynLayout(M, r, ds, frames[fi], ks, use_tw);
-            return 0;
-          }
-        }
-  }
-  return kNoFit;
-}
-
-// The synthesis's launch: whole-IDFT block (*slab = 0), slab layout (1),
-// or the two kernels through device memory (2); grid (tiles, C, residue
-// groups) from tile b0 on (for 2: b0 is the first IDFT row t_lo and the
-// grid is unused), shared memory in bytes, and the device-memory scratch
-// in floats (for 2: the frames' IDFT rows; 0 otherwise).  0 or a CUDA
-// error.
-int synthesis_plan(int C, int M, int m, int D, long long start, int out_len, int* slab,
-                   SynLayout* lay, dim3* grid, long long* b0, size_t* smem,
-                   long long* scratch) {
-  int optin;
-  int rc = smem_optin(&optin);
-  if (rc) return rc;
-  *scratch = 0;
-  int nf = 0, ds = kDS;
-  rc = kNoFit;
-  if (synthesis_block_fits(M, m, D, optin / 4)) {
-    const SynthLayout whole(M, m, D);
-    *slab = 4ull * whole.total > static_cast<size_t>(optin);
-    nf = whole.nf;
-    *smem = 4ull * whole.total;
-    rc = *slab ? synthesis_slab_layout(M, m, D, lay) : 0;
-    if (rc && rc != kNoFit) return rc;
-    if (*slab && rc == 0) {
-      nf = lay->nf;
-      ds = lay->ds;
-      *smem = 4ull * lay->total;
+                     float* __restrict__ y, double* __restrict__ part, int T, int M, int m, int D,
+                     long long t_lo, int nrows, long long start, int out_len, int nsplit) {
+  const int lane = threadIdx.x % 32, c = blockIdx.y, z = blockIdx.z;
+  const long long j0 = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x - lane;
+  if (j0 >= out_len) return;   // the whole warp
+  const long long j = j0 + lane, s = start + j, L = static_cast<long long>(m) * M;
+  const long long last = start + (j0 + 31 < out_len ? j0 + 31 : out_len - 1);
+  // the warp's rows: frames whose span [rho D, rho D + L) meets its samples
+  const long long lo = start + j0 - L + 1;
+  long long r_lo = lo >= 0 ? (lo + D - 1) / D : 0;
+  r_lo = r_lo > t_lo ? r_lo : t_lo;
+  long long r_hi = last / D;
+  r_hi = r_hi < t_lo + nrows - 1 ? r_hi : t_lo + nrows - 1;
+  r_hi = r_hi < T - 1 ? r_hi : T - 1;
+  const long long per = (r_hi - r_lo + nsplit) / nsplit;
+  const long long a = r_lo + z * per;
+  const long long b = a + per - 1 < r_hi ? a + per - 1 : r_hi;
+  double acc = 0.0;
+  if (j < out_len && a <= b) {
+    long long p = s - a * D;
+    long long q = p % M;   // p mod M, stepped with p
+    if (q < 0) q += M;
+    const float* row = v + (static_cast<long long>(c) * nrows + (a - t_lo)) * M;
+    for (long long rho = a; rho <= b; ++rho) {
+      if (p >= 0 && p < L)
+        acc = fma(static_cast<double>(__ldg(gf + p)), static_cast<double>(__ldg(row + q)), acc);
+      p -= D;
+      q -= D;
+      if (q < 0) q += M;
+      row += M;
     }
   }
-  if (rc == kNoFit) {   // no block holds it: the frames' IDFT in device memory
-    long long t_lo, nrows;
-    synthesis_rows(M, m, D, start, out_len, &t_lo, &nrows);
-    *slab = 2;
-    *b0 = t_lo;
-    *scratch = static_cast<long long>(C) * nrows * M;
-    *smem = 8ull * (kGK * kGF + (8ull * (M + kGK * kGF) <= static_cast<size_t>(optin) ? M : 0));
-    return 0;
+  if (j >= out_len) return;
+  if (nsplit == 1)
+    y[static_cast<long long>(c) * out_len + j] = static_cast<float>(acc);
+  else
+    part[(static_cast<long long>(z) * gridDim.y + c) * out_len + j] = acc;
+}
+
+// y = the sum of the nsplit partials, in split order.  n = C out_len.
+__global__ void __launch_bounds__(256)
+synthesis_ola_sum_kernel(const double* __restrict__ part, float* __restrict__ y, long long n,
+                         int nsplit) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  double acc = 0.0;
+  for (int z = 0; z < nsplit; ++z) acc += part[z * n + e];
+  y[e] = static_cast<float>(acc);
+}
+
+// ---- the launch --------------------------------------------------------------
+
+// route 0: tiles of F output frames from tf0 (grid tiles x C); route 1: the
+// IDFT of rows t_lo .. t_lo + nrows - 1 into the scratch (layout 0: F rows
+// a block in shared memory, 1: a block a row with the stages held, 2: a
+// block a row with its buffers in the scratch after the rows; grid blocks),
+// then the overlap-add.  scratch: floats of device memory the call needs.
+struct SynLaunch {
+  int route, layout, F, table, nsplit;
+  long long grid, t0, nrows, scratch, gbuf, part;   // t0: tf0 (route 0) or t_lo; gbuf, part: offsets, floats
+  size_t smem;
+};
+
+// Points a padded buffer of np points spans, in 64 bits.
+long long padded_ll(long long np) { return np + (np + 15) / 16; }
+
+// The IDFT's launch over `frames` rows (of nrows a channel): tiles of F
+// rows (at most kSynTilePoints points), F smaller while the grid has fewer
+// than kIdftBlocksPerSm blocks an SM, at most that many blocks, striding
+// over the tiles so each fills its twiddle table once for many; layout 0
+// in shared memory, else 1 a block a row with the stages held, else 2 the
+// buffers in device memory.
+void idft_layout(long long frames, long long nrows, long long n, long long tab, int budget,
+                 int sms, const Plan& pl, SynLaunch* ln) {
+  const long long blocks = static_cast<long long>(kIdftBlocksPerSm) * sms;
+  long long F = n < kSynTilePoints ? kSynTilePoints / n : 1;
+  const long long spread = (frames + blocks - 1) / blocks;
+  F = F < spread ? F : spread;
+  F = F < nrows ? F : nrows;
+  F = F > 1 ? F : 1;
+  for (int table = 1; table >= 0; --table) {
+    const long long smem = 16 * padded_ll(F * n) + (table ? tab : 0);
+    if (smem <= budget) {
+      ln->layout = 0;
+      ln->F = static_cast<int>(F);
+      ln->table = table;
+      ln->grid = frames / nrows * ((nrows + F - 1) / F);
+      ln->grid = ln->grid < blocks ? ln->grid : blocks;
+      ln->smem = static_cast<size_t>(smem);
+      return;
+    }
   }
-  const int mr = m * M / D;
-  const long long tile = static_cast<long long>(nf - mr + 1) * D;
-  *b0 = start / tile;
-  const long long b1 = (start + out_len - 1) / tile;
-  *grid = dim3(static_cast<unsigned>(b1 - *b0 + 1), C, (D + ds - 1) / ds);
+  ln->F = 1;
+  ln->grid = frames < blocks ? frames : blocks;
+  if (held_fits(pl))
+    for (int table = 1; table >= 0; --table) {
+      const long long smem = 8 * n + (table ? tab : 0);
+      if (smem <= budget) {
+        ln->layout = 1;
+        ln->table = table;
+        ln->smem = static_cast<size_t>(smem);
+        return;
+      }
+    }
+  ln->layout = 2;
+  ln->grid = frames < 2ll * sms ? frames : 2ll * sms;
+  ln->table = tab <= budget;
+  ln->smem = ln->table ? static_cast<size_t>(tab) : 0;
+}
+
+int synthesis_plan(int C, int M, int m, int D, long long start, int out_len, const Plan& pl,
+                   SynLaunch* ln) {
+  int budget, sms;
+  const int rc = smem_budget(&budget, &sms);
+  if (rc) return rc;
+  const long long n = pl.n, mr = static_cast<long long>(m) * (M / D), tab = 8ll * M;
+  const long long tf0 = start / D, tf1 = (start + out_len - 1) / D, fo = tf1 - tf0 + 1;
+  *ln = SynLaunch{};
+  // tiles: about one block an SM, at most kSynTilePoints points (or F = 1)
+  long long F = (C * fo + sms - 1) / sms;
+  const long long cap = kSynTilePoints / n - mr + 1;
+  F = F < cap ? F : cap;
+  F = F < fo ? F : fo;
+  F = F > 1 ? F : 1;
+  for (;;) {
+    for (int table = 1; table >= 0; --table) {
+      const long long smem = 16 * padded_ll((F + mr - 1) * n) + (table ? tab : 0);
+      if (smem <= budget) {
+        ln->route = 0;
+        ln->F = static_cast<int>(F);
+        ln->table = table;
+        ln->t0 = tf0;
+        ln->grid = (fo + F - 1) / F;
+        ln->smem = static_cast<size_t>(smem);
+        return 0;
+      }
+    }
+    if (F == 1) break;
+    F = (F + 1) / 2;
+  }
+  // through device memory: every frame the samples read
+  ln->route = 1;
+  ln->t0 = tf0 - mr + 1 > 0 ? tf0 - mr + 1 : 0;
+  ln->nrows = tf1 - ln->t0 + 1;
+  ln->scratch = (C * ln->nrows * M + 3) & ~3ll;   // the rows; what follows 16-byte aligned
+  idft_layout(C * ln->nrows, ln->nrows, n, tab, budget, sms, pl, ln);
+  if (ln->layout == 2) {   // two padded buffers of n complex points a block
+    ln->gbuf = ln->scratch;
+    ln->scratch += 4 * padded_ll(n) * ln->grid;
+  }
+  // the overlap-add: a warp's rows split so the grid has about kOlaWarpsPerSm
+  // warps an SM, each keeping at least kOlaRowsMin rows
+  const long long warps = C * ((out_len + 31) / 32);
+  const long long rows = mr + 31 / D + 1, want = static_cast<long long>(kOlaWarpsPerSm) * sms;
+  long long split = (want + warps - 1) / warps;
+  const long long most = (rows + kOlaRowsMin - 1) / kOlaRowsMin;
+  split = split < most ? split : most;
+  ln->nsplit = static_cast<int>(split < 65535 ? split : 65535);
+  if (ln->nsplit > 1) {   // the partial sums, doubles
+    ln->part = ln->scratch;
+    ln->scratch += 2ll * ln->nsplit * C * out_len;
+  }
   return 0;
 }
 
-int set_smem(const void* kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+int plan_for(int C, int M, int m, int D, long long start, int out_len, Plan* pl, SynLaunch* ln) {
+  if (C < 1 || M < 1 || D < 1 || out_len < 1) return kNoFit;
+  make_plan(M, pl, 8);
+  if (pl->nst > kMaxStages) return kNoFit;
+  return synthesis_plan(C, M, m, D, start, out_len, *pl, ln);
 }
 
 }  // namespace
@@ -513,15 +421,14 @@ int set_smem(const void* kernel, size_t bytes) {
 extern "C" {
 
 // The device-memory scratch (floats) dsr_fb_synthesis needs for these
-// arguments, in *floats (0 for most configs).  0, kNoFit, or a CUDA error.
+// arguments, in *floats (0 for the tile route).  0, kNoFit, or a CUDA error.
 int dsr_fb_synthesis_scratch(int C, int M, int m, int D, long long start, int out_len,
                              long long* floats) {
-  int slab;
-  SynLayout lay;
-  dim3 grid;
-  long long b0;
-  size_t smem;
-  return synthesis_plan(C, M, m, D, start, out_len, &slab, &lay, &grid, &b0, &smem, floats);
+  Plan pl;
+  SynLaunch ln;
+  const int rc = plan_for(C, M, m, D, start, out_len, &pl, &ln);
+  *floats = rc ? 0 : ln.scratch;
+  return rc;
 }
 
 // A: (C, T, K) complex64, gf: (L,) float32, y: (C, out_len) float32;
@@ -529,39 +436,39 @@ int dsr_fb_synthesis_scratch(int C, int M, int m, int D, long long start, int ou
 // floats dsr_fb_synthesis_scratch asks for, or null when it asks for none.
 int dsr_fb_synthesis(const float2* A, const float* gf, float* y, float* scratch, int C, int T,
                      int M, int m, int D, long long start, int out_len, void* stream) {
-  int slab;
-  SynLayout lay;
-  dim3 grid;
-  long long b0, need;
-  size_t smem;
-  int rc = synthesis_plan(C, M, m, D, start, out_len, &slab, &lay, &grid, &b0, &smem, &need);
+  Plan pl;
+  SynLaunch ln;
+  int rc = plan_for(C, M, m, D, start, out_len, &pl, &ln);
   if (rc) return rc;
-  if (need > 0 && scratch == nullptr) return kNoFit;
+  if (ln.scratch > 0 && scratch == nullptr) return kNoFit;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!slab) {
-    rc = set_smem(reinterpret_cast<const void*>(synthesis_kernel), smem);
+  if (ln.route == 0) {
+    rc = set_smem(reinterpret_cast<const void*>(synthesis_kernel), ln.smem);
     if (rc) return rc;
-    synthesis_kernel<<<grid, kThreadsS, smem, st>>>(A, gf, y, T, M, m, D, static_cast<int>(b0),
-                                                    start, out_len);
-  } else if (slab == 2) {
-    const long long nrows = need / (static_cast<long long>(C) * M);
-    const bool table = smem > 8ull * kGK * kGF;
-    auto idft = table ? synthesis_idft_kernel<true> : synthesis_idft_kernel<false>;
-    rc = set_smem(reinterpret_cast<const void*>(idft), smem);
-    if (rc) return rc;
-    idft<<<dim3(static_cast<unsigned>((nrows + kGF - 1) / kGF), (M + kGN - 1) / kGN, C), kGN,
-           smem, st>>>(A, scratch, T, M, b0, static_cast<int>(nrows));
-    rc = static_cast<int>(cudaGetLastError());
-    if (rc) return rc;
-    synthesis_ola_kernel<<<dim3(static_cast<unsigned>((out_len + 7) / 8), C), 256, 0, st>>>(
-        scratch, gf, y, T, M, m, D, b0, static_cast<int>(nrows), start, out_len);
-  } else {
-    auto kernel = lay.use_tw ? synthesis_slab_kernel<true> : synthesis_slab_kernel<false>;
-    rc = set_smem(reinterpret_cast<const void*>(kernel), smem);
-    if (rc) return rc;
-    kernel<<<grid, kThreadsS, smem, st>>>(A, gf, y, T, M, m, D, static_cast<int>(b0),
-                                          start, out_len, lay);
+    synthesis_kernel<<<dim3(static_cast<unsigned>(ln.grid), C), kThreadsS, ln.smem, st>>>(
+        A, gf, y, T, M, m, D, ln.F, ln.t0, start, out_len, ln.table, pl,
+        FastDiv(static_cast<unsigned>(D)));
+    return static_cast<int>(cudaGetLastError());
   }
+  const bool held = ln.layout == 1;
+  const auto idft = held ? synthesis_idft_kernel<true> : synthesis_idft_kernel<false>;
+  rc = set_smem(reinterpret_cast<const void*>(idft), ln.smem);
+  if (rc) return rc;
+  float2* gbuf = ln.layout == 2 ? reinterpret_cast<float2*>(scratch + ln.gbuf) : nullptr;
+  idft<<<static_cast<unsigned>(ln.grid), held ? kThreadsH : kThreadsS, ln.smem, st>>>(
+      A, scratch, C, T, M, ln.t0, static_cast<int>(ln.nrows), ln.F, ln.table, pl, gbuf);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  double* part = ln.nsplit > 1 ? reinterpret_cast<double*>(scratch + ln.part) : nullptr;
+  synthesis_ola_kernel<<<dim3(static_cast<unsigned>((out_len + 255) / 256), C, ln.nsplit), 256, 0,
+                         st>>>(scratch, gf, y, part, T, M, m, D, ln.t0, static_cast<int>(ln.nrows),
+                               start, out_len, ln.nsplit);
+  if (ln.nsplit == 1) return static_cast<int>(cudaGetLastError());
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  const long long total = static_cast<long long>(C) * out_len;
+  synthesis_ola_sum_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
+      part, y, total, ln.nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 

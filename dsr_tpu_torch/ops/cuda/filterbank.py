@@ -2,13 +2,15 @@
 
 Counterpart of `dsr_tpu/ops/pallas/filterbank.py`.  Three CUDA kernels,
 each D-parametric, so one kernel serves every (M, m, r) where the TPU had
-a D == 128 kernel and a general one: the analysis and the fused analysis
-+ fixed-weight beamform, a factorised real FFT of each folded frame
-(`csrc/analysis.cu`: a mixed-radix Stockham FFT in shared memory, several
+a D == 128 kernel and a general one, all on one mixed-radix Stockham FFT
+(`csrc/fft.cuh`): the analysis and the fused analysis + fixed-weight
+beamform, a real FFT of each folded frame (`csrc/analysis.cu`: several
 frames a block at small M; the fused kernel splits a tile's channels over
-a thread-block cluster), and the synthesis, a direct IDFT
-(`csrc/filterbank.cu`).  The sources say what bounds each kernel on the
-card and how its design answers that.  The fused kernel also runs over a
+a thread-block cluster), and the synthesis, an inverse real FFT of each
+frame and the overlap-add as a gather (`csrc/filterbank.cu`: tiles of
+frames in shared memory, or every frame through device memory when a tile
+does not fit).  The sources say what bounds each kernel on the card and
+how its design answers that.  The fused kernel also runs over a
 staged bank of B signals (`analysis_beamform_staged`), with the buffer's
 index an int or read from device memory.
 
@@ -233,9 +235,9 @@ def synthesis(A: torch.Tensor, gf: torch.Tensor, M: int, m: int, r: int, start: 
     if y.numel() == 0:
         return y
     lib = _kernels()
-    # device memory for the IDFT of every frame the output needs, for
-    # configs whose block cannot hold the frames' IDFT (m·r² above
-    # ~7,000); none otherwise
+    # device memory for the inverse FFT of every frame the output needs,
+    # for configs whose tile does not fit a block (large M or m·r); none
+    # otherwise
     floats = ctypes.c_longlong()
     rc = lib.dsr_fb_synthesis_scratch(C, M, m, D, start, out_len, ctypes.byref(floats))
     _raise_on(rc, "synthesis", M, m, r)

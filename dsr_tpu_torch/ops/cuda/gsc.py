@@ -1,10 +1,13 @@
 """GSC-NLMS kernel for Hopper, its plain PyTorch twin, and the wrapper.
 
 Counterpart of `dsr_tpu/ops/pallas/gsc.py` (`gsc_nlms`): the generalised
-sidelobe canceller's whole frame recurrence in one launch (`csrc/gsc.cu`:
-up to 16 channels one thread per utterance and bin with the active weights
-in registers, above that one warp per utterance and bin).  The
-kernel's layout is the JAX wrapper's batched form, complex64 throughout:
+sidelobe canceller's whole frame recurrence (`csrc/gsc.cu`, two launches:
+the front work yc = wq^H x, z = B^H x, |z|^2 and the NLMS gain for every
+frame in parallel into a scratch array, then the serial chain a warp per
+group of bins, the active weights in registers, a bin on 1 lane up to 4
+channels and on a group of 2 to 32 lanes above; above 513 channels a warp
+a bin with the weights in device memory).
+The kernel's layout is the JAX wrapper's batched form, complex64 throughout:
 X (U, N, T, K), wq (U, K, N), B (U, K, N, N-1), wa0 (U, K, N-1) or None
 → (Y (U, T, K), wa (U, K, N-1)).
 
@@ -24,7 +27,8 @@ import torch
 from dsr_tpu_torch.ops.cuda import build
 from dsr_tpu_torch.ops.cuda.launch import check, on_cuda, stream
 
-# Kernel launches since the last `reset_launches()`.
+# Kernel launches since the last `reset_launches()` (one a call: the front
+# work's launch and the chain's).
 launches = {"gsc": 0}
 
 
@@ -61,7 +65,7 @@ def _kernel() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dsr_gsc_nlms.argtypes = [p, p, p, p, p, p, i, i, i, i, f, f, f, p, p]
     lib.dsr_gsc_nlms.restype = ctypes.c_int
-    lib.dsr_gsc_scratch.argtypes = [i, i, i]
+    lib.dsr_gsc_scratch.argtypes = [i, i, i, i]
     lib.dsr_gsc_scratch.restype = ctypes.c_longlong
     return lib
 
@@ -85,14 +89,12 @@ def gsc_nlms(X: torch.Tensor, wq: torch.Tensor, B: torch.Tensor, mu: float = 0.1
     if U * K == 0:
         return Y, wa
     lib = _kernel()
-    need = lib.dsr_gsc_scratch(U, N, K)
-    if need < 0:
-        raise RuntimeError(f"gsc kernel: CUDA error {-need} reading the device")
-    scratch = torch.empty(need, dtype=torch.complex64, device=X.device) if need else None
+    # the front work's records (yc, z, the gain) of every frame and bin
+    scratch = torch.empty(lib.dsr_gsc_scratch(U, N, T, K), dtype=torch.complex64, device=X.device)
     rc = lib.dsr_gsc_nlms(X.data_ptr(), wq.data_ptr(), B.data_ptr(),
                           None if wa0 is None else wa0.data_ptr(), Y.data_ptr(), wa.data_ptr(),
-                          U, N, T, K, float(mu), float(eps), float(cap),
-                          None if scratch is None else scratch.data_ptr(), stream())
+                          U, N, T, K, float(mu), float(eps), float(cap), scratch.data_ptr(),
+                          stream())
     if rc != 0:
         raise RuntimeError(f"gsc kernel failed to launch: CUDA error {rc}")
     launches["gsc"] += 1

@@ -237,3 +237,147 @@ def gmm_pair(rng, S, C=2, D=13):
     logw = np.log(rng.dirichlet(np.ones(C), size=S)).astype(np.float32)
     return (jgmm.GmmParams(jnp.asarray(means), jnp.asarray(variances), jnp.asarray(logw)),
             gmm.GmmParams(means, variances, logw))
+
+
+# ----------------------------------- csrc/fft.cuh and the synthesis, in NumPy
+
+
+def fft_radices(n, max_radix=4):
+    """make_plan's stages: one radix 8 where 8 divides (max_radix 8, the
+    fused kernel's and the synthesis's plans), radix 4 while 4 divides, then
+    2, then 3s, then the other primes in increasing order."""
+    out = []
+    if max_radix >= 8 and n % 8 == 0:
+        out, n = [8], n // 8
+    while n % 4 == 0:
+        out, n = out + [4], n // 4
+    if n % 2 == 0:
+        out, n = out + [2], n // 2
+    q = 3
+    while n > 1:
+        while n % q == 0:
+            out, n = out + [q], n // q
+        q += 2
+    return out
+
+
+def fft_twiddles(M):
+    """The kernels' table e^{-2 pi i j / M}, j < M, with sincospi's exact
+    zeros (cos at M/4 and 3M/4, sin at 0 and M/2)."""
+    j = np.arange(M)
+    c, s = np.cos(2 * np.pi * j / M), np.sin(2 * np.pi * j / M)
+    c[(4 * j == M) | (4 * j == 3 * M)] = 0.0
+    s[(j == 0) | (2 * j == M)] = 0.0
+    return (c - 1j * s).astype(np.complex64)
+
+
+def stockham(z, M, max_radix=4):
+    """run_stages over the last axis of z (n = M/2 points for even M, M for
+    odd): the mixed-radix Stockham stages, stage of radix R with Ns the
+    product of the earlier radices taking element j + r n/R, twiddled by
+    W_n^{(j mod Ns) r n/(Ns R)}, through a length-R DFT to (j div Ns) Ns R
+    + (j mod Ns) + k Ns; the forward DFT of z, in complex64."""
+    n = z.shape[-1]
+    s = M // n
+    tw = fft_twiddles(M)
+    Ns = 1
+    for R in fft_radices(n, max_radix):
+        nR = n // R
+        j = np.arange(nR)
+        jm = j % Ns
+        v = [z[..., j + r * nR] * tw[s * jm * r * (n // (Ns * R))] for r in range(R)]
+        out = np.empty_like(z)
+        for k in range(R):
+            out[..., (j // Ns) * Ns * R + jm + k * Ns] = sum(
+                v[r] * tw[s * ((r * k) % R) * nR] for r in range(R))
+        z, Ns = out, Ns * R
+    return z
+
+
+def synthesis_idft(A, M, t0, nf):
+    """pack, the stages and unpack of csrc/filterbank.cu: frames t0 .. t0 +
+    nf - 1 of A (C, T, K) (zeros outside [0, T)) → (C, nf, M) real samples,
+    each frame's irfft.  Even M: Z[k] = ((A[k] + conj A[n-k]) + i e^{2 pi i
+    k/M} (A[k] - conj A[n-k])) / M, k < n = M/2, the DC and Nyquist bins'
+    imaginary parts dropped; odd M: the Hermitian extension / M, DC's
+    imaginary part dropped.  The forward stages run on conj Z, and v[2j] =
+    Re z[j], v[2j+1] = Im z[j] (odd M: v[p] = Re z[p]) with z = conj of
+    their output."""
+    C, T, K = A.shape
+    t = t0 + np.arange(nf)
+    live = (t >= 0) & (t < T)
+    a = np.where(live[None, :, None], A[:, np.clip(t, 0, T - 1)], 0).astype(np.complex64)
+    if M % 2 == 0:
+        n = M // 2
+        lo, hi = a[..., :n].copy(), a[..., n:0:-1].copy()   # A[k], A[n - k]
+        lo[..., 0] = lo[..., 0].real
+        hi[..., 0] = hi[..., 0].real
+        w = np.conj(fft_twiddles(M)[:n])
+        Z = (lo + np.conj(hi)) + 1j * w * (lo - np.conj(hi))
+    else:
+        Z = np.concatenate([a, np.conj(a[..., K - 1:0:-1])], axis=-1)   # A[M - k] = conj A[k]
+        Z[..., 0] = Z[..., 0].real
+    z = np.conj(stockham(np.conj(Z / M).astype(np.complex64), M, max_radix=8))
+    if M % 2:
+        return z.real.astype(np.float32)
+    return np.stack([z.real, z.imag], axis=-1).reshape(C, nf, M).astype(np.float32)
+
+
+def synthesis_plan(C, M, m, r, start, out_len, sms=132, budget=232448 - 1024):
+    """synthesis_plan's route for a card of `sms` SMs and `budget` bytes of
+    shared memory a block: ("tiles", F) with F output frames a block (about
+    one block an SM, at most 4096 points a tile, halved until its two
+    padded buffers and the twiddle table fit), or ("device", t_lo, nrows)."""
+    D, mr = M // r, m * r
+    n = M // 2 if M % 2 == 0 else M
+    padded = lambda p: p + (p + 15) // 16   # noqa: E731
+    tf0, tf1 = start // D, (start + out_len - 1) // D
+    fo = tf1 - tf0 + 1
+    F = max(1, min(-(-C * fo // sms), 4096 // n - mr + 1, fo))
+    while True:
+        if 16 * padded((F + mr - 1) * n) <= budget:   # with or without the table
+            return "tiles", F
+        if F == 1:
+            t_lo = max(0, tf0 - mr + 1)
+            return "device", t_lo, tf1 - t_lo + 1
+        F = (F + 1) // 2
+
+
+def synthesis_tiles(A, gf, M, m, r, start, out_len, F):
+    """synthesis_kernel: tiles of F output frames from tf0 = start // D;
+    each transforms its F + m r - 1 frames (the halo before it) and gathers
+    sample (fb, d) as sum over jj < m r, ascending, of gf[d + jj D] v[fb + m
+    r - 1 - jj][(jj D + d) mod M], in float32."""
+    C = A.shape[0]
+    D, mr = M // r, m * r
+    tf0, tf1 = start // D, (start + out_len - 1) // D
+    y = np.zeros((C, out_len), np.float32)
+    for tfb in range(tf0, tf1 + 1, F):
+        v = synthesis_idft(A, M, tfb - (mr - 1), F + mr - 1)
+        fb, d = np.divmod(np.arange(F * D), D)
+        j = (tfb + fb) * D + d - start
+        ok = (j >= 0) & (j < out_len)
+        acc = np.zeros((C, F * D), np.float32)
+        for jj in range(mr):
+            acc += gf[d + jj * D] * v[:, fb + mr - 1 - jj, (jj * D + d) % M]
+        y[:, j[ok]] = acc[:, ok]
+    return y
+
+
+def synthesis_device_route(A, gf, M, m, r, start, out_len, t_lo, nrows):
+    """synthesis_idft_kernel then synthesis_ola_kernel: every frame t_lo ..
+    t_lo + nrows - 1 transformed into rows of device memory, then each
+    output sample sums its m r terms in double (the kernel walks the rows in
+    ascending order, here the terms; in double the order shows below
+    float32's rounding)."""
+    C, T, _ = A.shape
+    D, mr = M // r, m * r
+    v = synthesis_idft(A, M, t_lo, nrows).astype(np.float64)
+    s = start + np.arange(out_len)
+    tf, d = np.divmod(s, D)
+    y = np.zeros((C, out_len))
+    for jj in range(mr):
+        t = tf - jj
+        ok = (t >= 0) & (t < T)
+        y[:, ok] += gf[d[ok] + jj * D] * v[:, t[ok] - t_lo, (jj % r) * D + d[ok]]
+    return y.astype(np.float32)

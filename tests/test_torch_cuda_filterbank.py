@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import SR, filterbank_case, geometry, rel
+from _torch_parity import SR, fft_radices, fft_twiddles, filterbank_case, geometry, rel, stockham
 from dsr_tpu.config import FilterbankConfig as JFilterbankConfig
 from dsr_tpu.ops import beamforming as jbf
 from dsr_tpu.ops import filterbank as jfb
@@ -43,35 +43,6 @@ def test_fused_analysis_beamform_matches_pallas():
 # ------------------------------------------ analysis.cu's FFT plan, in NumPy
 
 
-def _radices(n, max_radix=4):
-    """make_plan's stages: one radix 8 where 8 divides (max_radix 8, the
-    fused kernel's plans), radix 4 while 4 divides, then 2, then 3s, then
-    the other primes in increasing order."""
-    out = []
-    if max_radix >= 8 and n % 8 == 0:
-        out, n = [8], n // 8
-    while n % 4 == 0:
-        out, n = out + [4], n // 4
-    if n % 2 == 0:
-        out, n = out + [2], n // 2
-    q = 3
-    while n > 1:
-        while n % q == 0:
-            out, n = out + [q], n // q
-        q += 2
-    return out
-
-
-def _twiddles(M):
-    """The kernel's table e^{-2 pi i j / M}, j < M, with sincospi's exact
-    zeros (cos at M/4 and 3M/4, sin at 0 and M/2)."""
-    j = np.arange(M)
-    c, s = np.cos(2 * np.pi * j / M), np.sin(2 * np.pi * j / M)
-    c[(4 * j == M) | (4 * j == 3 * M)] = 0.0
-    s[(j == 0) | (2 * j == M)] = 0.0
-    return (c - 1j * s).astype(np.complex64)
-
-
 def _analysis_fft_in_numpy(x, hf, M, m, D, T, max_radix=4, split=True):
     """analysis_fft_kernel: fold, pack two reals a point (even M), the
     mixed-radix Stockham stages (stage of radix R, Ns the product of the
@@ -86,19 +57,9 @@ def _analysis_fft_in_numpy(x, hf, M, m, D, T, max_radix=4, split=True):
     u = (frames * hf).reshape(C, T, m, M).sum(2).astype(np.float32)
     n = M // 2 if M % 2 == 0 else M
     s = M // n
-    tw = _twiddles(M)
+    tw = fft_twiddles(M)
     z = (u[..., 0::2] + 1j * u[..., 1::2] if s == 2 else u).astype(np.complex64)
-    Ns = 1
-    for R in _radices(n, max_radix):
-        nR = n // R
-        j = np.arange(nR)
-        jm = j % Ns
-        v = [z[..., j + r * nR] * tw[s * jm * r * (n // (Ns * R))] for r in range(R)]
-        out = np.empty_like(z)
-        for k in range(R):
-            out[..., (j // Ns) * Ns * R + jm + k * Ns] = sum(
-                v[r] * tw[s * ((r * k) % R) * nR] for r in range(R))
-        z, Ns = out, Ns * R
+    z = stockham(z, M, max_radix)
     if not split:
         return z
     if s == 1:
@@ -119,7 +80,7 @@ def test_fft_plan_in_numpy_matches_plain_and_jax():
     prototypes, and against the JAX package's analysis at the five shipped
     configs."""
     rng = np.random.default_rng(21)
-    assert _radices(384) == [4, 4, 4, 2, 3] and _radices(127) == [127]
+    assert fft_radices(384) == [4, 4, 4, 2, 3] and fft_radices(127) == [127]
     for M, r in ((96, 2), (256, 2), (512, 4), (768, 1), (1024, 2), (2048, 2), (127, 1)):
         m, D = 2, M // r
         hf = rng.standard_normal(m * M).astype(np.float32) / 16
@@ -170,7 +131,7 @@ def _split_items(Z, M):
     k = np.arange(1, n // 2 + 1)
     zk, zn = Z[..., k], np.conj(Z[..., n - k])
     e = (zk + zn) / 2
-    u = _twiddles(M)[k] * (-1j * (zk - zn) / 2)
+    u = fft_twiddles(M)[k] * (-1j * (zk - zn) / 2)
     A[..., k] = e + u
     A[..., n - k] = np.conj(e - u)
     return A

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import filterbank_case, rel
+from _torch_parity import filterbank_case, rel, synthesis_device_route
 from dsr_tpu.ops import filterbank as jfb
 from dsr_tpu.ops.pallas import filterbank as pfb
 from dsr_tpu_torch.ops import filterbank as tfb
@@ -33,13 +33,14 @@ def test_synthesis_matches_jax_and_reconstructs(M, ref):
 
 
 def test_device_memory_synthesis_route_in_numpy_matches_twin():
-    """The synthesis route for configs whose slab block does not fit
-    (`csrc/filterbank.cu`: synthesis_rows, synthesis_idft_kernel,
-    synthesis_ola_kernel), transcribed to NumPy at small sizes with large
-    m·r: every frame's IDFT at all M indices in rows t_lo.., then each
-    output sample gathers m·r frames.  Against the plain twin, 1e-5; at
-    M = 64 m = 8 r = 64 (m·r = 512, D = 1) the twin also against the JAX
-    package's synthesis, 1e-5."""
+    """The synthesis route for configs whose tile does not fit shared memory
+    (`csrc/filterbank.cu`: synthesis_plan's device route, synthesis_idft_kernel
+    and synthesis_ola_kernel), transcribed to NumPy (`_torch_parity`'s
+    synthesis_device_route) at small sizes with large m·r: every frame's
+    inverse FFT (the pack, the Stockham stages on the conjugate, the unpack)
+    into rows t_lo.., then each output sample gathers m·r frames in double.
+    Against the plain twin, 1e-5; at M = 64 m = 8 r = 64 (m·r = 512, D = 1)
+    the twin also against the JAX package's synthesis, 1e-5."""
     from dsr_tpu.config import FilterbankConfig as JFilterbankConfig
     from dsr_tpu_torch.config import FilterbankConfig
     from dsr_tpu_torch.ops.cuda import filterbank as cfb
@@ -54,26 +55,7 @@ def test_device_memory_synthesis_route_in_numpy_matches_twin():
         out_len = min(out_len, (T - 1) * D + m * M - start)
         t_lo = max(0, start // D - mr + 1)
         nrows = (start + out_len - 1) // D - t_lo + 1
-        scale = np.full(K, 2.0 / M)
-        scale[0] = 1.0 / M
-        if M % 2 == 0:
-            scale[M // 2] = 1.0 / M
-        n, k = np.arange(M)[:, None], np.arange(K)[None, :]
-        cs, sn = np.cos(2 * np.pi * n * k / M), np.sin(2 * np.pi * n * k / M)
-        v = np.zeros((2, nrows, M))
-        for f in range(nrows):
-            t = t_lo + f
-            if t < T:
-                a = A[:, t] * scale
-                v[:, f] = a.real @ cs.T - a.imag @ sn.T
-        y = np.zeros((2, out_len))
-        for j in range(out_len):
-            s = start + j
-            tf, d = s // D, s % D
-            for jj in range(mr):
-                t = tf - jj
-                if 0 <= t < T:
-                    y[:, j] += gf[d + jj * D] * v[:, t - t_lo, (jj % r) * D + d]
+        y = synthesis_device_route(A, gf, M, m, r, start, out_len, t_lo, nrows)
         ref = cfb.synthesis_plain(torch.as_tensor(A), torch.as_tensor(gf), M, r, start, out_len)
         assert rel(y, ref.numpy()) < TOL
         if (M, m, r) == (64, 8, 64):   # delay 0: the output starts at L - D
