@@ -79,7 +79,23 @@ Phases, each of which fails the run loudly:
   10. SB, the staged buffer bank: bench.py's 8 buffers of 64 ch x 8 s
      staged once on the card, every buffer by int and by device index
      against the unstaged fused kernel, bitwise, and a serving loop over
-     the bank with no host readback.
+     the bank with no host readback;
+  11. T, the triphone LVCSR decode: the V = 300 triphone task built by the
+     port (its figures against the JAX package's), its analytic tied AM on
+     the card, 4 in-domain sentences through the dense decoder (kcap 192)
+     and the degree-split one (an `eg` sized from the graph, no overflowed
+     frame), exact words, one select launch per frame, and sentence 0's
+     token tables against the CPU plain path's, bitwise;
+  12. TT, tied triphones trained from audio (tests/test_tritrain_wer.py's
+     system): 30 reverberant 8-mic recordings (utils/room.py) -> MVDR
+     (analysis -> weights -> synthesis) -> MFCC + CMN -> monophone EM ->
+     one banded-kernel alignment per utterance -> tree -> tied EM, the
+     tree and tied parameters against the CPU plain path's, then the
+     60-distractor triphone and monophone graphs and 6 eval utterances
+     through the single mic and MVDR with the JAX test's WER gates;
+  13. AD, adaptation on config 1's phone task: MLLR, fMLLR, SAT (host loop
+     and batched), MLLR regression classes and VTLN with the JAX tests'
+     gates, each against the CPU plain path on the same inputs.
 Phase 2 also holds the select kernel's lattice mode to its twin bitwise
 (U = 8 at the four pool shapes, nlat 1 / 3 / 4 / 8, and kcap 155 with nlat
 512) and the synthesis at M = 4096, m = 8, r = 4096 (m r = 32,768, through
@@ -98,6 +114,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -154,6 +171,434 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def exact_tie(params, task, feats, words, segs_a, segs_b) -> bool:
+    """True when two segmentations of one utterance's alignment chain score
+    exactly the same on `params`' log-likelihoods, summed as the banded
+    kernel sums them (float32, frame by frame: delta + weight, then + ll)."""
+    from dsr_tpu_torch.asr.am import gmm
+
+    ids, A, _, _ = task.align_graph(words)
+    ll = gmm.loglik(params, torch.as_tensor(feats, device=params.means.device))[:, ids]
+    ll = ll.cpu().numpy()
+    A = np.asarray(A, np.float32)
+
+    def score32(segs):
+        pos = np.repeat(np.arange(len(segs)), [e - b for _, b, e in segs])
+        s = ll[0, pos[0]]
+        for t in range(1, len(pos)):
+            s = (s + A[pos[t - 1], pos[t]]) + ll[t, pos[t]]
+        return s
+
+    return score32(segs_a) == score32(segs_b)
+
+
+def max_rel(p, q) -> float:
+    """max |a - b| / (|b| + 1) over the GMM parameters of p (any device)
+    against q (on the CPU)."""
+    def err(a, b):
+        return float(((a.cpu() - b).abs() / (b.abs() + 1)).max())
+
+    return max(err(getattr(p, n), getattr(q, n)) for n in ("means", "variances", "logweights"))
+
+
+# The JAX package's build_task_tri at V = 300 (its own native core on the
+# CPU): the port's graph must have exactly these figures.
+TRI_V300 = {"num_states": 213145, "num_arcs": 841161, "max_outdeg": 263,
+            "seen_triphones": 21871, "tied_pdfs": 1080}
+
+
+def phase_tri_decode(ctx, cfg_t=None, expect=TRI_V300, n_sents=4):
+    """T: the triphone LVCSR task built by the port (V = 300 trigram, C,
+    likelihood-gain tree, H_tri), its analytic tied AM on the card, and
+    tests/test_lvcsr.py's in-domain gate through the dense and the
+    degree-split decoders; words exact, one select launch per frame, no
+    overflowed frame, sentence 0's token tables card == CPU bitwise."""
+    from dsr_tpu_torch.asr import lvcsr
+    from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.decoder import split_decoder as sd
+    from dsr_tpu_torch.asr.decoder import topk_decoder as tk
+
+    dev, smi = ctx.dev, ctx.smi
+    cfg_t = cfg_t or lvcsr.LvcsrConfig(vocab_size=300, n_tokens=5000, branching=3)
+    t0 = time.perf_counter()
+    task = lvcsr.build_task_tri(cfg_t)
+    t_build = time.perf_counter() - t0
+    got = {k: task.build_stats[k] for k in expect}
+    print(f"T: triphone graph V={cfg_t.vocab_size} built by the port's WFST core and tree: "
+          f"{got} in {t_build:.2f} s on the host (G and CLG {task.build_stats['build_fsts_s']} s, "
+          f"tree, H_tri and HCLG {task.build_stats['build_tri_s']} s)")
+    check(got == expect, f"T: the triphone graph {got} differs from the JAX package's {expect}")
+
+    am = lvcsr.synthetic_am_tri(task, device=dev)
+    tg = tk.build_token_graph(task.graph, device=dev)
+    sg = sd.build_split_graph(task.graph, a0=2, device=dev)
+    kcap, beam = 192, 60.0
+    eg = sd.overflow_budget(sg, kcap)    # the most groups kcap tokens can ask for
+    rng0 = np.random.default_rng(cfg_t.seed)
+    lex = lvcsr.make_lexicon(cfg_t.vocab_size, rng0)
+    text = lvcsr.make_text(sorted(lex), cfg_t.n_tokens, cfg_t.branching, rng0)
+    rs = np.random.default_rng(7)
+    sents = [s[:3] for s in text[:n_sents]]
+    lls = [gmm.loglik(am, torch.as_tensor(lvcsr.synthesize_utterance_tri(task, s, rs), device=dev))
+           for s in sents]
+    frames = [int(x.shape[0]) for x in lls]
+    audio = sum(frames) / 125.0          # the front end's frame rate at M = 256, r = 2
+    decoders = {"dense": lambda x: tk.decode(tg, x, kcap=kcap, beam=beam),
+                "split": lambda x: sd.decode_split(sg, x, kcap=kcap, beam=beam, eg=eg)}
+    pools = {"dense": f"{kcap} x {tg.a_max} = {kcap * tg.a_max}",
+             "split": f"({kcap} + {eg}) x {sg.a0} = {(kcap + eg) * sg.a0}"}
+    for name, run in decoders.items():
+        run(lls[0][:20])                 # warm-up
+        outs, secs = ctx.timed(lambda: ctx.counted(
+            f"T: {name} decode ({len(sents)} sentences)", lambda: [run(x) for x in lls],
+            {"select": sum(frames)}))
+        hyps = [[task.words.name(int(w)) for w in o[0] if w] for o in outs]
+        overflow = sum(int(o[3]) for o in outs) if name == "split" else 0
+        print(f"T: {name} decode of {len(sents)} sentences ({frames} frames), kcap {kcap}, beam "
+              f"{beam}, select pool {pools[name]} candidates: {secs:.3f} s = "
+              f"{audio / secs:.1f} audio-s/s on the host clock; sentences with errors "
+              f"{sum(h != s for h, s in zip(hyps, sents))}"
+              + (f", overflow frames {overflow} (eg {eg})" if name == "split" else "")
+              + f"  [{smi}]")
+        check(hyps == sents, f"T: {name} decode words {hyps} differ from {sents}")
+        check(overflow == 0, f"T: the split decode overflowed on {overflow} frames")
+
+    # sentence 0's token tables, card against the CPU plain path
+    cpu = {"dense": tk.build_token_graph(task.graph, device="cpu"),
+           "split": sd.build_split_graph(task.graph, a0=2, device="cpu")}
+    expand = {"dense": lambda g: (lambda s_, sc_, l_: tk.candidates(g, s_, sc_, l_)),
+              "split": lambda g: (lambda s_, sc_, l_: sd.candidates(g, s_, sc_, l_, eg))}
+    for name, g in (("dense", tg), ("split", sg)):
+        toks = []
+        for g_, x in ((g, lls[0][None]), (cpu[name], lls[0][None].cpu())):
+            st0, sc0 = tk.start_tokens(g_, 1, kcap)
+            toks.append(tk.token_pass(expand[name](g_), x, np.array([x.shape[1]]), st0, sc0,
+                                      beam, kcap)[2:5])
+        same = all(torch.equal(ctx.bits(c.cpu()), ctx.bits(h)) for c, h in zip(*toks))
+        print(f"T: {name} sentence 0 token states, arcs and scores card vs CPU plain path "
+              f"bitwise equal {same}")
+        check(same, f"T: the {name} decode's token tables differ from the CPU plain path's")
+
+
+def phase_tri_train(ctx, n_train=30, n_eval=6, ndist=60):
+    """TT: tests/test_tritrain_wer.py's system on the card: reverberant 8-mic
+    recordings (utils/room.py) -> MVDR (analysis -> weights -> synthesis) ->
+    MFCC + CMN -> monophone EM -> tied-triphone training -> the distractor
+    lexicon's triphone and monophone graphs -> eval through the single mic
+    and through MVDR, with the JAX test's gates."""
+    from dsr_tpu_torch.asr import path as apath
+    from dsr_tpu_torch.asr import phone_task, triphone, tritrain
+    from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.decoder import topk_decoder as tk
+    from dsr_tpu_torch.asr.fsm import hclg, lm
+    from dsr_tpu_torch.asr.fsm.hclg import SymbolTable
+    from dsr_tpu_torch.asr.fsm.packed import pack
+    from dsr_tpu_torch.asr.train import trainer
+    from dsr_tpu_torch.config import ArrayGeometry
+    from dsr_tpu_torch.ops import beamforming as bf
+    from dsr_tpu_torch.ops import features as ft
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.utils import corpus, room
+
+    dev, cfg, smi = ctx.dev, ctx.cfg, ctx.smi
+    SRC = np.array([0.6, 1.5, 0.3])                   # tests/test_tritrain_wer.py's scene
+    ROOM, CENTER = np.array([5.0, 4.0, 3.0]), np.array([2.0, 1.0, 1.2])
+    POS = np.asarray(ArrayGeometry.circular(8, 0.10).positions)
+    taus = (room.steering_delays(POS, SRC, 343.0, SR) / SR).astype(np.float32)
+    w_mvdr = bf.mvdr_weights(bf.steering_vectors(torch.as_tensor(taus, device=dev), cfg.M, SR),
+                             bf.diffuse_coherence(POS, cfg.M, SR, 343.0, device=dev), 1e-2)
+
+    def simulate(x, rng):
+        return room.simulate(x, POS, SRC, SR, snr_db=30.0, diffuse_snr_db=2.0, rng=rng,
+                             room_dim=ROOM, array_center=CENTER, reflect=0.75,
+                             max_order=2).astype(np.float32)
+
+    def mvdr_of(xm):
+        xt = torch.as_tensor(xm, device=dev)
+        return fb.synthesis(bf.apply_weights(fb.analysis(xt, cfg), w_mvdr), cfg, xt.shape[-1])
+
+    def feats_of(y):
+        return ft.cmn(ft.mfcc(torch.as_tensor(y, device=dev), SR)).cpu().numpy()
+
+    task = phone_task.PhoneTask(corpus.VOCAB, states_per_phone=2)
+    train_corpus = corpus.make_corpus(n_train, seed=0)
+    tsim = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    sims = [simulate(x, tsim) for _, x in train_corpus]
+    t_sim = time.perf_counter() - t0
+    feats, t_front = ctx.timed(lambda: ctx.counted(
+        f"TT: training front end ({n_train} utterances, MVDR)",
+        lambda: [feats_of(mvdr_of(xm)) for xm in sims],
+        {"analysis": n_train, "synthesis": n_train}))
+    trans = [ws for ws, _ in train_corpus]
+    mono, t_mono = ctx.timed(lambda: ctx.counted(
+        "TT: monophone EM (4 iterations)",
+        lambda: trainer.train(task, feats, trans, num_comp=2, iters=4, device=dev), {}))
+    tri, t_tri = ctx.timed(lambda: ctx.counted(
+        f"TT: tied triphones (monophone alignments, tree, 3 tied iterations)",
+        lambda: tritrain.train_tied_triphone(task, mono, feats, trans, iters=3, device=dev),
+        {"viterbi": n_train}))
+    check(tri.stats_contexts > tri.tree.num_leaves > 5,
+          f"TT: tying {tri.stats_contexts} contexts -> {tri.tree.num_leaves} leaves")
+    check(bool(torch.isfinite(tri.params.means).all()), "TT: finite tied means")
+
+    # card against the CPU plain path on the same features and monophones
+    mono_cpu = ctx.host_copy(mono)
+    tri_cpu = tritrain.train_tied_triphone(task, mono_cpu, feats, trans, iters=3, device="cpu")
+    ties = 0
+    for f, ws in zip(feats, trans):
+        a, b = apath.force_align(task, mono, f, ws), apath.force_align(task, mono_cpu, f, ws)
+        if a.segments != b.segments:
+            check(exact_tie(mono, task, f, ws, a.segments, b.segments),
+                  "TT: a monophone alignment differs from the CPU's off an exact tie")
+            ties += 1
+    tree_eq = tri.tree == tri_cpu.tree      # dataclass equality: node for node
+    check(tree_eq or ties > 0, "TT: the card's tree differs from the CPU's on equal alignments")
+    e_tri = max_rel(tri.params, tri_cpu.params) if tree_eq else float("nan")
+    print(f"TT: {n_train} reverberant recordings simulated in {t_sim:.2f} s on the host; MVDR "
+          f"front end {t_front:.3f} s, monophone EM {t_mono:.3f} s, tied triphones {t_tri:.3f} s "
+          f"on the host clock [{smi}]; tree {tri.stats_contexts} contexts -> "
+          f"{tri.tree.num_leaves} leaves; card vs CPU plain path: alignments equal in "
+          f"{n_train - ties} of {n_train} ({ties} at an exact-score tie), tree equal {tree_eq}, "
+          f"tied parameters max |a - b| / (|b| + 1) {e_tri:.2e} (bound 5e-4)")
+    check(not tree_eq or e_tri <= 5e-4, "TT: tied training, card vs CPU")
+
+    # the distractor lexicon's bigram graphs: triphone (the trained tree) and monophone
+    rng = np.random.default_rng(0)
+    plist = sorted(corpus.PHONES)
+    lexicon = {w: tuple(corpus.WORDS[w]) for w in corpus.VOCAB}
+    for i in range(ndist):
+        n = int(rng.integers(2, 6))
+        lexicon[f"w{i:04d}"] = tuple(plist[j] for j in rng.integers(0, len(plist), n))
+    vocab_all = sorted(lexicon)
+    words = SymbolTable(vocab_all)
+    texts = [[vocab_all[j] for j in rng.integers(0, len(vocab_all), rng.integers(2, 6))]
+             for _ in range(1500)]
+    G = lm.arpa_to_fst(lm.train_arpa_bigram(texts, vocab_all), words)
+    t0 = time.perf_counter()
+    nCLG, tbl, seen = triphone.build_clg_native(lexicon, task.phones, words, G)
+    tri_graph, gstats = triphone.finish_tri_hclg_native(nCLG, tbl, tri.tree, task.phones, task.spp,
+                                                        seen_tris=seen)
+    t_graph = time.perf_counter() - t0
+    L, ndis = hclg.build_lexicon_fst(lexicon, task.phones, words, sil_phone="sil")
+    P = len(task.phones) - 1
+    mono_graph = pack(hclg.compose_hclg(hclg.build_hmm_fst(P, ndis, states_per_phone=task.spp),
+                                        L, G, P, ndis))
+    tg_t = tk.build_token_graph(tri_graph, device=dev)
+    tg_m = tk.build_token_graph(mono_graph, device=dev)
+
+    simrng = np.random.default_rng(11)
+    evalc = corpus.make_corpus(n_eval, seed=300)
+    xms = [simulate(x, simrng) for _, x in evalc]
+    nfr = [1 + (xm.shape[-1] - 400) // 160 for xm in xms]
+
+    def run_eval():
+        hyps = {(s, f): [] for s in ("mono", "tri") for f in ("single", "mvdr")}
+        for xm in xms:
+            for fname, sig in (("single", xm[0]), ("mvdr", mvdr_of(xm))):
+                f_ = torch.as_tensor(feats_of(sig), device=dev)
+                o_t, _ = tk.decode(tg_t, gmm.loglik(tri.params, f_), kcap=512, beam=80.0)
+                o_m, _ = tk.decode(tg_m, gmm.loglik(mono, f_), kcap=256, beam=60.0)
+                hyps[("tri", fname)].append([words.name(int(w)) for w in o_t if w])
+                hyps[("mono", fname)].append([words.name(int(w)) for w in o_m if w])
+        return hyps
+
+    hyps, t_dec = ctx.timed(lambda: ctx.counted(
+        f"TT: eval ({n_eval} utterances, single mic and MVDR, triphone and monophone decodes)",
+        run_eval, {"analysis": n_eval, "synthesis": n_eval, "select": 4 * sum(nfr)}))
+    refs = [list(ws) for ws, _ in evalc]
+    wer = {k: ctx.wer_of(refs, h).wer for k, h in hyps.items()}
+    print(f"TT: triphone graph ({len(lexicon)} words) {gstats} in {t_graph:.2f} s, monophone graph "
+          f"{mono_graph.num_states} states; eval {n_eval} utterances ({sum(nfr)} frames, 4 decodes "
+          f"each) {t_dec:.3f} s on the host clock [{smi}]; WER "
+          + ", ".join(f"{s}-{f} {w:.3f}" for (s, f), w in wer.items())
+          + " (gates: tri-mvdr < tri-single, tri-mvdr <= mono-mvdr)")
+    check(wer[("tri", "mvdr")] < wer[("tri", "single")], "TT: MVDR beats the single mic")
+    check(wer[("tri", "mvdr")] <= wer[("mono", "mvdr")] + 1e-9,
+          "TT: the tied triphones match or beat the monophones through MVDR")
+
+
+def phase_adapt(ctx):
+    """AD: adaptation on config 1's phone task, the recipes of
+    tests/test_adapt_mmi_lattice.py (MLLR, fMLLR, SAT in both forms),
+    tests/test_mllr_regclass.py and tests/test_vtln.py, on the card; each
+    result against the CPU plain path on the same inputs."""
+    from dsr_tpu_torch.asr import path as apath
+    from dsr_tpu_torch.asr import phone_task
+    from dsr_tpu_torch.asr.adapt import fmllr, mllr, sat, vtln
+    from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.train import ml, trainer
+    from dsr_tpu_torch.utils import corpus
+
+    dev, smi = ctx.dev, ctx.smi
+    task = phone_task.PhoneTask(corpus.VOCAB[:6], states_per_phone=2)
+    utts = [(ws, x) for ws, x in corpus.make_corpus(40, seed=0)
+            if all(w in task.vocab for w in ws)][:25]
+    feats = [ctx.c1_feats(x) for _, x in utts]
+    trans = [ws for ws, _ in utts]
+    params = trainer.train(task, feats, trans, num_comp=2, iters=3, device=dev)
+    host = ctx.host_copy(params)
+    S = task.num_states
+
+    def gamma(f, ws):
+        al = apath.force_align(task, params, f, ws)
+        return np.eye(S, dtype=np.float32)[al.states]
+
+    def fit(p, f):
+        return float(gmm.loglik(p, torch.as_tensor(f, device=p.means.device)).max(-1).values.sum())
+
+    def on(p, a):
+        return torch.as_tensor(a, device=p.means.device)
+
+    # MLLR and fMLLR of a shifted speaker (occupancies from the card's alignment)
+    shift_m = np.zeros(13, np.float32)
+    shift_m[:4] = [2.0, -1.0, 0.8, 0.5]
+    shift_f = np.zeros(13, np.float32)
+    shift_f[:3] = [1.5, -0.7, 0.6]
+    f_m, f_f = feats[0] + shift_m, feats[1] + shift_f
+    g_m, g_f = ctx.counted("AD: occupancies for MLLR and fMLLR",
+                           lambda: (gamma(f_m, trans[0]), gamma(f_f, trans[1])), {"viterbi": 2})
+
+    def mllr_fmllr(p):
+        acc = ml.accumulate(p, on(p, f_m), on(p, g_m), ml.zero_accum(S, 2, 13, p.means.device))
+        W = mllr.estimate_mllr(p, acc)
+        Wf = fmllr.estimate_fmllr(fmllr.accumulate_fmllr(p, on(p, f_f), on(p, g_f)), iters=5)
+        f2 = fmllr.apply_fmllr(on(p, f_f), Wf).cpu().numpy()
+        return W, fit(mllr.apply_mllr(p, W), f_m) - fit(p, f_m), Wf, fit(p, f2) - fit(p, f_f)
+
+    (W, gain_m, Wf, gain_f), t_mf = ctx.timed(lambda: mllr_fmllr(params))
+    W_c, _, Wf_c, _ = mllr_fmllr(host)
+    corr = float(np.corrcoef(Wf[:, 13].cpu().numpy()[:3], -shift_f[:3])[0, 1])
+    e_m, e_f = rel_err(W.cpu(), W_c), rel_err(Wf.cpu(), Wf_c)
+    # tolerances of tests/test_torch_adapt.py: float32 normal equations (MLLR)
+    # and row updates (fMLLR) in another summation order
+    print(f"AD: MLLR gain {gain_m:.1f} nats (gate > 1), fMLLR gain {gain_f:.1f} nats (gate > 1), "
+          f"bias vs shift correlation {corr:.3f} (gate > 0.5); {t_mf:.3f} s for both on the host "
+          f"clock [{smi}]; card vs CPU plain path W rel err {e_m:.2e} (bound 2e-3), Wf {e_f:.2e} "
+          f"(bound 5e-4)")
+    check(gain_m > 1.0 and gain_f > 1.0 and corr > 0.5, "AD: MLLR / fMLLR gains")
+    check(e_m <= 2e-3 and e_f <= 5e-4, "AD: MLLR / fMLLR, card vs CPU")
+
+    # SAT: the host loop with re-alignment (every speaker's fit improves),
+    # then the batched form against the host loop on fixed occupancies
+    shifts = {"spkA": np.r_[np.float32([1.2, -0.6, 0.4]), np.zeros(10, np.float32)],
+              "spkB": np.r_[np.float32([-0.9, 0.8, -0.3]), np.zeros(10, np.float32)]}
+    speakers = {"spkA": [feats[0] + shifts["spkA"], feats[2] + shifts["spkA"]],
+                "spkB": [feats[1] + shifts["spkB"], feats[3] + shifts["spkB"]]}
+    spk_words = {"spkA": [trans[0], trans[2]], "spkB": [trans[1], trans[3]]}
+    (sat_p, sat_W), t_sat = ctx.timed(lambda: ctx.counted(
+        "AD: SAT iteration (2 speakers x 2 utterances, aligned and re-aligned)",
+        lambda: sat.sat_iteration(params, speakers, lambda p, f, spk, i: gamma(
+            f, spk_words[spk][0 if i is None else i]), num_comp=2), {"viterbi": 8}))
+    fits = {spk: (fit(params, u[0]), fit(params, fmllr.apply_fmllr(on(params, u[0]),
+                                                                  sat_W[spk]).cpu().numpy()))
+            for spk, u in speakers.items()}
+    T = min(f.shape[0] for f in feats[:4])
+    u4 = [np.asarray(f[:T], np.float32) for f in feats[:4]]
+    g4 = [gamma(u, trans[i]) for i, u in enumerate(u4)]
+    gmap = {("a", 0): g4[0], ("a", 1): g4[1], ("b", 0): g4[2], ("b", 1): g4[3]}
+    fb4 = np.stack([np.stack(u4[:2]), np.stack(u4[2:])])
+    gb4 = np.stack([np.stack(g4[:2]), np.stack(g4[2:])])
+    gb4_0 = np.stack([np.stack([g4[0], g4[0]]), np.stack([g4[2], g4[2]])])
+    ref_p, ref_W = sat.sat_iteration(params, {"a": u4[:2], "b": u4[2:]},
+                                     lambda p, f, spk, i: gmap[(spk, 0 if i is None else i)],
+                                     num_comp=2)
+    (bat_p, bat_W), t_bat = ctx.timed(lambda: sat.sat_iteration_batched(
+        params, fb4, gb4, gamma_fn=lambda p, f: on(p, gb4_0)))
+    bat_pc, bat_Wc = sat.sat_iteration_batched(host, fb4, gb4,
+                                               gamma_fn=lambda p, f: on(p, gb4_0))
+    e_bw = max(rel_err(bat_W[i].cpu(), ref_W[s].cpu()) for i, s in enumerate("ab"))
+    e_bm = rel_err(bat_p.means.cpu(), ref_p.means.cpu())
+    e_cw, e_cm = rel_err(bat_W.cpu(), bat_Wc), rel_err(bat_p.means.cpu(), bat_pc.means)
+    print(f"AD: SAT host loop {t_sat:.3f} s, batched {t_bat:.3f} s on the host clock [{smi}]; "
+          f"fit before -> after per speaker "
+          f"{ {k: (round(a, 1), round(b, 1)) for k, (a, b) in fits.items()} }; "
+          f"batched vs host loop: transforms rel err {e_bw:.2e} (bound 2e-4), means {e_bm:.2e} "
+          f"(bound 2e-3); batched card vs CPU plain path {e_cw:.2e} / {e_cm:.2e} (same bounds)")
+    check(all(after > before for before, after in fits.values()), "AD: SAT improves every speaker")
+    check(e_bw <= 2e-4 and e_bm <= 2e-3, "AD: batched SAT equals the host loop")
+    check(e_cw <= 2e-4 and e_cm <= 2e-3, "AD: batched SAT, card vs CPU")
+
+    # MLLR regression classes (tests/test_mllr_regclass.py's three cases)
+    Sg, Dg = 24, 4
+    group = np.arange(Sg) % 2
+    regc = []
+    for seed, shifts_c, occ, n_leaves, min_occ in (
+            (0, [[2.0, -1.0, 0.5, 1.5], [-1.5, 2.0, -0.5, -2.0]], np.full(Sg, 200.0), 2, 50.0),
+            (1, [[1.0, 1, 1, 1], [-1.0, -1, -1, -1]], np.where(group == 0, 300.0, 2.0), 2, 50.0),
+            (2, [[0.7, -0.2, 0.1, 0.4]] * 2, np.full(Sg, 200.0), 4, 10.0)):
+        r = np.random.default_rng(seed)
+        centers = np.asarray([[4.0, 4, 4, 4], [-4.0, -4, -4, -4]])
+        mu = np.stack([centers[s % 2] + r.normal(0, 1.0, Dg) for s in range(Sg)])
+        target = mu + np.asarray(shifts_c)[group]
+        occ = occ.astype(np.float32)
+        stats = (occ[:, None], (occ[:, None] * target)[:, None].astype(np.float32),
+                 (occ[:, None] * (target ** 2 + 0.5))[:, None].astype(np.float32))
+        out = []
+        for d in (dev, "cpu"):
+            p = gmm.GmmParams(mu[:, None, :].astype(np.float32), np.full((Sg, 1, Dg), 0.5),
+                              np.zeros((Sg, 1))).to(d)
+            acc = ml.GmmAccum(*(torch.as_tensor(a, device=d) for a in stats))
+            tree = mllr.build_regression_tree(p, acc.occ, n_leaves=n_leaves)
+            W_node, class_W = mllr.estimate_mllr_regclass(p, acc, tree, min_occ=min_occ)
+            ad = mllr.apply_mllr_regclass(p, W_node, class_W).means[:, 0].cpu().numpy()
+            glob = mllr.apply_mllr(p, mllr.estimate_mllr(p, acc)).means[:, 0].cpu().numpy()
+            out.append((tree, class_W.cpu().numpy(), ad, glob))
+        (tree, cls, ad, glob), (tree_c, cls_c, ad_c, _) = out
+        regc.append(dict(err_class=float(np.abs(ad - target).max()),
+                         err_global=float(np.abs(glob - target).max()),
+                         classes=len(set(zip(group.tolist(), tree.leaf_of.tolist()))),
+                         poor={int(c) for c in cls[group == 1]},
+                         rich={int(c) for c in cls[group == 0]},
+                         same=bool(np.array_equal(tree.leaf_of, tree_c.leaf_of)
+                                   and np.array_equal(cls, cls_c)),
+                         e_cpu=float(np.abs(ad - ad_c).max() / np.abs(ad_c).max())))
+    print(f"AD: MLLR regression classes: two clusters err class {regc[0]['err_class']:.2e} "
+          f"(gate < 2e-2) vs global {regc[0]['err_global']:.2f} (gate > 0.5); data-poor class "
+          f"backs off to {regc[1]['poor']} (gate {{0}}), rich keeps {regc[1]['rich']}; uniform "
+          f"shift over 4 leaves err {regc[2]['err_class']:.2e} (gate < 5e-2); card vs CPU trees "
+          f"and classes equal {[c['same'] for c in regc]}, adapted means rel err "
+          f"{max(c['e_cpu'] for c in regc):.2e} (bound 1e-4)")
+    check(regc[0]["err_class"] < 2e-2 and regc[0]["err_global"] > 0.5
+          and regc[0]["classes"] == 2, "AD: two-class MLLR")
+    check(regc[1]["poor"] == {0} and regc[1]["rich"] != {0}, "AD: MLLR class back-off")
+    check(regc[2]["err_class"] < 5e-2, "AD: MLLR classes under a uniform shift")
+    check(all(c["same"] and c["e_cpu"] <= 1e-4 for c in regc), "AD: MLLR classes, card vs CPU")
+
+    # VTLN (tests/test_vtln.py): the full vocabulary's phone task
+    vtask = phone_task.PhoneTask(corpus.VOCAB, states_per_phone=2)
+    vc = corpus.make_corpus(25, seed=0)
+    vparams = trainer.train(vtask, [ctx.c1_feats(x) for _, x in vc], [ws for ws, _ in vc],
+                            num_comp=2, iters=3, device=dev)
+    warps = (0.85, 0.9, 0.95, 1.0, 1.05, 1.1, 1.15)
+    plain = corpus.make_corpus(4, seed=200)
+    phones = corpus.PHONES
+    corpus.PHONES = {p: tuple(f * 1.1 for f in fs) for p, fs in phones.items()}
+    try:
+        warped = corpus.make_corpus(4, seed=200)    # every formant 10 % high
+    finally:
+        corpus.PHONES = phones
+    est = {}
+    for name, c in (("unwarped", plain), ("warped", warped)):
+        args = ([x for _, x in c], [ws for ws, _ in c])
+        est[name], secs = ctx.timed(lambda: ctx.counted(
+            f"AD: VTLN {name} speaker ({len(warps)} warps x 4 utterances)",
+            lambda: vtln.estimate_warp(vtask, vparams, *args, warps=warps),
+            {"viterbi": len(warps) * 4}))
+        est[name + " s"] = secs
+    best_c, scores_c = vtln.estimate_warp(vtask, ctx.host_copy(vparams), [x for _, x in warped],
+                                          [ws for ws, _ in warped], warps=warps)
+    (b0, _), (b1, s1) = est["unwarped"], est["warped"]
+    e_v = max(abs(s1[w] - scores_c[w]) / abs(scores_c[w]) for w in warps)
+    print(f"AD: VTLN unwarped speaker -> {b0} (gate |w - 1| <= 0.05), warped x1.1 -> {b1} (gate "
+          f"|w - 1/1.1| <= 0.051), its score gain over 1.0 {s1[b1] - s1[1.0]:.1f} (gate > 1); "
+          f"{est['unwarped s']:.3f} / {est['warped s']:.3f} s on the host clock [{smi}]; card vs "
+          f"CPU plain path warp {b1} / {best_c}, scores rel err {e_v:.2e} (bound 1e-3)")
+    check(abs(b0 - 1.0) <= 0.05, "AD: VTLN keeps an unwarped speaker at 1.0")
+    check(abs(b1 - 1.0 / 1.1) <= 0.051 and s1[b1] > s1[1.0] + 1.0, "AD: VTLN recovers the warp")
+    check(b1 == best_c and e_v <= 1e-3, "AD: VTLN, card vs CPU")
 
 
 def main() -> int:
@@ -1352,9 +1797,7 @@ def main() -> int:
     # another order (GMM matmul, einsum accumulators) over 4 iterations whose
     # alignments are equal; measured on the CPU against the JAX package the
     # trainers agree to ~4e-5 relative (tests/test_torch_trainer.py, 5e-4)
-    e_train = max(float(((getattr(params1, n).cpu() - getattr(params1_cpu, n)).abs()
-                         / (getattr(params1_cpu, n).abs() + 1)).max())
-                  for n in ("means", "variances", "logweights"))
+    e_train = max_rel(params1, params1_cpu)
     print(f"config 1 train: 60 utterances ({sum(len(f) for f in feats1)} frames, longest "
           f"{max(len(f) for f in feats1)}; chains of up to "
           f"{max(len(task1.align_graph(w)[0]) for w in words1)} states), 4 iterations: "
@@ -1375,21 +1818,9 @@ def main() -> int:
               and np.isfinite(a.score), "config 1: an alignment visits every chain state")
         if a.segments != ref.segments:
             # an exact-score tie: on the card's own log-likelihoods, summed
-            # as the kernel sums them (float32, frame by frame: delta +
-            # weight, then + ll), the CPU's path scores exactly what the
+            # as the kernel sums them, the CPU's path scores exactly what the
             # card's does; anything else fails
-            ids, A1, _, _ = task1.align_graph(w)
-            ll1 = gmm.loglik(params1, torch.as_tensor(f, device=dev))[:, ids].cpu().numpy()
-            A1 = np.asarray(A1, np.float32)
-
-            def score32(segs):
-                pos = np.repeat(np.arange(len(segs)), [e - b for _, b, e in segs])
-                s_ = ll1[0, pos[0]]
-                for t_ in range(1, len(pos)):
-                    s_ = (s_ + A1[pos[t_ - 1], pos[t_]]) + ll1[t_, pos[t_]]
-                return s_
-
-            check(score32(a.segments) == score32(ref.segments),
+            check(exact_tie(params1, task1, f, w, a.segments, ref.segments),
                   "config 1: the card's alignment differs from the CPU's off an exact tie")
             ties += 1
         check(abs(a.score - ref.score) <= 1e-3 * abs(ref.score),
@@ -1560,9 +1991,7 @@ def main() -> int:
     p5c, h5c = mmi.ebw_train(ptask, host_copy(pparams), wd.to_device(pg1, device="cpu"),
                              feats1[:5], words1[:5], iters=2)
     e_h = float(np.max(np.abs(np.asarray(h5) - h5c) / np.abs(h5c)))
-    e_p = max(float(((getattr(p5, n).cpu() - getattr(p5c, n)).abs()
-                     / (getattr(p5c, n).abs() + 1)).max())
-              for n in ("means", "variances", "logweights"))
+    e_p = max_rel(p5, p5c)
     # where the time goes: one pass's alignments and full-graph denominators
     # (one padded batch of the 60 utterances, as ebw_train runs them)
     _, t_al = timed(lambda: [apath.force_align(ptask, pparams, f, w)
@@ -1642,6 +2071,13 @@ def main() -> int:
         lambda: cfb.analysis_beamform_plain(xp_bank[3], hf_t, w64, cfg.M, cfg.r, T64),
         4 * (64 * S64 + cfg.L) + 8 * K * 64 + 8 * T64 * K,
         64 * T64 * (2 * cfg.L + rfft_flops(cfg.M) + 8 * K))
+
+    # ---- 11-13. T, TT and AD: triphones and adaptation ----------------------
+    ctx = types.SimpleNamespace(dev=dev, smi=smi, cfg=cfg, counted=counted, timed=timed,
+                                bits=bits, host_copy=host_copy, wer_of=wer_of, c1_feats=c1_feats)
+    phase_tri_decode(ctx)
+    phase_tri_train(ctx)
+    phase_adapt(ctx)
 
     print(f"main path launches, all paths: {counts}")
 

@@ -169,10 +169,25 @@ def decode_batch_split(graph: SplitTokenGraph, loglik, lengths, kcap: int = 256,
             torch.from_numpy(ovf_frames.astype(np.int64)))
 
 
+def overflow_budget(graph: SplitTokenGraph, kcap: int) -> int:
+    """The most overflow group rows `kcap` live tokens can ask for in one
+    frame (the sum of the kcap largest per-state group counts): an `eg` of
+    this size never overflows."""
+    k = min(kcap, graph.num_states)
+    return max(int(torch.topk(graph.ov_count.cpu(), k).values.sum()), 1)
+
+
 def decode_split(graph: SplitTokenGraph, loglik, kcap: int = 256, beam: float = 1e9,
                  length=None, eg: int = 256):
     """Degree-split decode of one utterance: loglik (T, P) → (olabels (T,),
-    score, spill_frames, overflow_frames)."""
+    score, spill_frames, overflow_frames).
+
+    The default `eg` is the reference's 256 group rows, which a graph with
+    high out-degree states can overrun: an overflowed frame drops the
+    weakest tokens' extra arcs (on the triphone graph, the arcs at word
+    ends) and counts in `overflow_frames`, with no error.  A caller sizes
+    `eg` from its graph (`overflow_budget`, or the demand it measured) and
+    checks that count."""
     ll = _logliks(graph, loglik)
     T = ll.shape[0]
     out = decode_batch_split(graph, ll[None], [T if length is None else int(length)],

@@ -1,10 +1,10 @@
 """Synthetic LVCSR task: a large-vocabulary trigram HCLG built on the host.
 
-The port's copy of the monophone part of `dsr_tpu/asr/lvcsr.py`.  No
-corpus ships with the repository, so the task is generated: random
-pronunciations over a CMU-style phone inventory, a sparse-Markov text
-corpus, an absolute-discount trigram ARPA (`lm.train_arpa_ngram`), and an
-HCLG composed through the port's native WFST core (`fsm/native.NativeFst`),
+The port's copy of `dsr_tpu/asr/lvcsr.py`.  No corpus ships with the
+repository, so the task is generated: random pronunciations over a
+CMU-style phone inventory, a sparse-Markov text corpus, an
+absolute-discount trigram ARPA (`lm.train_arpa_ngram`), and an HCLG
+composed through the port's native WFST core (`fsm/native.NativeFst`),
 so the intermediate graphs (det(LG), H∘LG, rmeps) never round-trip through
 Python objects.  The same config gives the same graph as the JAX package's
 `build_task`, array for array.
@@ -14,10 +14,14 @@ shares pronunciation prefixes across words and every state's out-degree is
 bounded by the phone inventory, not the vocabulary: the packed
 (S, A_max) token tables stay narrow.
 
-Graphs are cached (npz) under `$DSR_TPU_TORCH_CACHE`, else
-`~/.cache/dsr_tpu_torch`, keyed by the build parameters.  Not ported yet
-(ROADMAP): the triphone task (`build_task_tri`, which needs `tree.py` and
-`triphone.py`).
+The triphone task (`build_task_tri`) puts the delayed-emission context
+transducer between H and det(LG) and ties the triphone states with a
+likelihood-gain tree grown on analytic statistics; its graph is the JAX
+package's array for array too.
+
+Monophone graphs are cached (npz) under `$DSR_TPU_TORCH_CACHE`, else
+`~/.cache/dsr_tpu_torch`, keyed by the build parameters; the triphone
+build is not cached, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,11 +35,14 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from dsr_tpu_torch.asr import tree as ptree
+from dsr_tpu_torch.asr import triphone
 from dsr_tpu_torch.asr.am.gmm import GmmParams
 from dsr_tpu_torch.asr.fsm import lm as _lm
 from dsr_tpu_torch.asr.fsm import native as _native
 from dsr_tpu_torch.asr.fsm.hclg import SymbolTable, build_hmm_fst, build_lg_fst
 from dsr_tpu_torch.asr.fsm.packed import PackedGraph, pack_csr
+from dsr_tpu_torch.utils.device import resolve
 
 # CMU-style condensed phone inventory (39 phones + sil)
 PHONE_INVENTORY = (
@@ -114,6 +121,39 @@ class LvcsrTask:
         return (len(self.phones) - 1) * self.cfg.states_per_phone
 
 
+# CMU-class questions for triphone state tying at LVCSR scale
+TRI_QUESTIONS = {
+    "vowel": set("aa ae ah ao aw ay eh er ey ih iy ow oy uh uw".split()),
+    "front_v": set("iy ih eh ey ae".split()),
+    "back_v": set("uw uh ow ao aa".split()),
+    "stop": set("p b t d k g".split()),
+    "fric": set("f v th dh s z sh zh hh".split()),
+    "affric": set("ch jh".split()),
+    "nasal": set("m n ng".split()),
+    "liquid": set("l r w y".split()),
+    "sil": {"sil"},
+}
+
+
+def _tri_feat_dim(phones, spp: int) -> int:
+    return (len(phones) - 1) * spp + len(TRI_QUESTIONS)
+
+
+def _tri_mean(phones, spp: int, l_name: str, c_pid: int, pos: int,
+              scale: float = 4.0) -> np.ndarray:
+    """Analytic feature mean for (left-context, center-state): the center
+    (c, pos) one-hot plus left-context coloring on the question dims —
+    context-dependent structure the tree can genuinely tie on."""
+    D = _tri_feat_dim(phones, spp)
+    m = np.zeros(D, np.float32)
+    m[(c_pid - 1) * spp + pos] = scale
+    base = (len(phones) - 1) * spp
+    for j, cls in enumerate(TRI_QUESTIONS.values()):
+        if l_name in cls:
+            m[base + j] = 0.5 * scale
+    return m
+
+
 def synthetic_am(task: LvcsrTask, scale: float = 4.0, var: float = 0.25) -> GmmParams:
     """A well-separated diagonal GMM over D = num_pdfs feature dims (mean of
     pdf p = scale·e_p), on the CPU (`.to(device)` moves it): WER gates
@@ -152,6 +192,111 @@ def synthesize_utterance(task: LvcsrTask, sentence: list[str],
     feats = noise * rng.standard_normal((T, task.num_pdfs)).astype(np.float32)
     feats[np.arange(T), pdfs] += scale
     return feats
+
+
+@dataclass
+class LvcsrTriTask:
+    """Triphone LVCSR task: tied-state triphone HCLG (H_tri ∘ C ∘ det(LG))
+    built through the native core, with the analytic tied-state AM."""
+
+    graph: PackedGraph
+    words: SymbolTable
+    phones: SymbolTable
+    lexicon: dict[str, tuple[str, ...]]
+    cfg: LvcsrConfig
+    tree: ptree.DistribTree
+    num_pdfs: int
+    am_means: np.ndarray       # (num_pdfs, D) analytic leaf means
+    build_stats: dict
+
+
+def build_task_tri(cfg: LvcsrConfig = LvcsrConfig(vocab_size=300,
+                                                  n_tokens=5000, branching=3)
+                   ) -> LvcsrTriTask:
+    """Triphone config-4 build: trigram G → det(LG) → C (delayed-emission
+    context transducer) → likelihood-gain tied tree → H_tri — every
+    at-scale composition through the native WFST core.  Tree statistics
+    are analytic (`_tri_mean`): contexts colored by their left phone's
+    question classes, so the tying is non-trivial and exactly learnable.
+    """
+    rng = np.random.default_rng(cfg.seed)
+    lex = make_lexicon(cfg.vocab_size, rng)
+    vocab = sorted(lex)
+    words = SymbolTable(vocab + ["</s>", "<s>"])
+    phones = SymbolTable(PHONE_INVENTORY + ["sil"])
+    spp = cfg.states_per_phone
+
+    t0 = time.time()
+    text = make_text(vocab, cfg.n_tokens, cfg.branching, rng)
+    arpa = _lm.train_arpa_ngram(text, vocab, order=cfg.order)
+    G = _lm.arpa_to_fst(arpa, words)
+    nCLGr, tbl, seen = triphone.build_clg_native(lex, phones, words, G)
+    t1 = time.time()
+
+    stats: dict = {}
+    n0 = 200.0
+    for sym in seen:
+        l, c, r = tbl.untri(sym)
+        ln, cn, rn = phones.name(l), phones.name(c), phones.name(r)
+        for pos in range(spp):
+            m = _tri_mean(phones, spp, ln, c, pos).astype(np.float64)
+            stats[(ln, cn, rn, pos)] = [n0, n0 * m, n0 * (0.25 + m * m)]
+    tree = ptree.build_tree(stats, questions=TRI_QUESTIONS, min_gain=50.0,
+                            min_count=10.0, max_leaves=4000)
+    graph, gstats = triphone.finish_tri_hclg_native(nCLGr, tbl, tree, phones,
+                                                    spp, seen_tris=seen)
+    bstats = {
+        **gstats, "seen_triphones": len(seen),
+        "build_fsts_s": round(t1 - t0, 2),
+        "build_tri_s": round(time.time() - t1, 2),
+    }
+    # analytic tied-state AM: leaf mean = count-weighted mean of its contexts
+    D = _tri_feat_dim(phones, spp)
+    P_leaves = tree.num_leaves
+    sums = np.zeros((P_leaves, D))
+    cnts = np.zeros(P_leaves)
+    for (ln, cn, rn, pos), (n_, sx, _) in stats.items():
+        leaf = tree.lookup(ln, cn, rn, pos)
+        sums[leaf] += sx
+        cnts[leaf] += n_
+    am_means = (sums / np.maximum(cnts[:, None], 1.0)).astype(np.float32)
+    return LvcsrTriTask(graph, words, phones, lex, cfg, tree,
+                        P_leaves, am_means, bstats)
+
+
+def synthetic_am_tri(task: LvcsrTriTask, var: float = 0.25, device=None) -> GmmParams:
+    """Diagonal GMM over the tied leaves (means = analytic leaf means), on
+    the card unless `device` names another."""
+    P, D = task.am_means.shape
+    return GmmParams(
+        task.am_means[:, None, :],
+        np.full((P, 1, D), var, np.float32),
+        np.zeros((P, 1), np.float32),
+    ).to(resolve(device))
+
+
+def synthesize_utterance_tri(task: LvcsrTriTask, sentence: list[str],
+                             rng: np.random.Generator, noise: float = 0.5,
+                             sil_prob: float = 0.5,
+                             dur: tuple[int, int] = (2, 5)) -> np.ndarray:
+    """Render `sentence` with CONTEXT-DEPENDENT acoustics: frame means are
+    the analytic (left-context, center-state) means `_tri_mean`, matching
+    the C transducer's sil-boundary conventions."""
+    spp = task.cfg.states_per_phone
+    seq: list[str] = []
+    for wd in sentence:
+        seq.extend(task.lexicon[wd])
+        if rng.random() < sil_prob:
+            seq.append("sil")
+    rows = []
+    for i, ph in enumerate(seq):
+        ln = seq[i - 1] if i > 0 else "sil"
+        pid = task.phones[ph]
+        for pos in range(spp):
+            m = _tri_mean(task.phones, spp, ln, pid, pos)
+            rows.extend([m] * int(rng.integers(*dur)))
+    feats = np.stack(rows)
+    return (feats + noise * rng.standard_normal(feats.shape)).astype(np.float32)
 
 
 def _cache_dir() -> pathlib.Path:

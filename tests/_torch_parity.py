@@ -239,6 +239,62 @@ def gmm_pair(rng, S, C=2, D=13):
             gmm.GmmParams(means, variances, logw))
 
 
+def adapt_system():
+    """tests/test_adapt_mmi_lattice.py's adaptation task at a smaller size:
+    the 6-word phone task, its first 9 all-in-vocabulary utterances of 40
+    (the port's MFCC + CMN) and GMMs trained on them by the JAX package in
+    3 iterations → (JAX task, port task, JAX params, port params, feats,
+    words)."""
+    from dsr_tpu.asr.train import trainer as jtrainer
+    from dsr_tpu_torch import convert
+    from dsr_tpu_torch.utils import corpus
+
+    jtask, task = phone_pair(corpus.VOCAB[:6])
+    feats, words = config1_corpus(40)
+    keep = [i for i, ws in enumerate(words) if all(w in task.vocab for w in ws)][:12]
+    feats, words = [feats[i] for i in keep], [words[i] for i in keep]
+    jp = jtrainer.train(jtask, feats, words, num_comp=2, iters=3)
+    return jtask, task, jp, convert.gmm_params(jp), feats, words
+
+
+def adapt_gamma(jtask, task, jp, p, f, ws):
+    """One-hot occupancies (T, S) of the port's forced alignment, checked
+    equal to the JAX package's."""
+    from dsr_tpu.asr import path as jpath
+    from dsr_tpu_torch.asr import path
+
+    al = path.force_align(task, p, f, ws)
+    assert np.array_equal(al.states, np.asarray(jpath.force_align(jtask, jp, f, ws).states))
+    return np.eye(task.num_states, dtype=np.float32)[al.states]
+
+
+# ---------------------------------------------------------------- triphones
+
+
+def tree_alignments(n_utts, seed, spp=2, D=13):
+    """(frames, feats, phone seqs) per utterance: each phone's spp states
+    held for 1-6 frames; features float32 around a per-phone mean."""
+    from dsr_tpu_torch.utils import corpus
+
+    rng = np.random.default_rng(seed)
+    phones = sorted(corpus.PHONES) + ["sil"]
+    means = {p: rng.standard_normal(D) * 2 for p in phones}
+    frames_l, feats_l, seqs = [], [], []
+    for _ in range(n_utts):
+        words = [corpus.VOCAB[i] for i in rng.integers(0, len(corpus.VOCAB), rng.integers(1, 5))]
+        seq = ["sil"]
+        for w in words:
+            seq.extend(corpus.WORDS[w])
+            seq.append("sil")
+        frames = [(pi, pos) for pi in range(len(seq)) for pos in range(spp)
+                  for _ in range(int(rng.integers(1, 7)))]
+        feats = np.stack([means[seq[pi]] + rng.standard_normal(D) for pi, _ in frames])
+        frames_l.append(frames)
+        feats_l.append(feats.astype(np.float32))
+        seqs.append(seq)
+    return frames_l, feats_l, seqs
+
+
 # ----------------------------------- csrc/fft.cuh and the synthesis, in NumPy
 
 

@@ -72,6 +72,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.startswith('jax')"
         " or m.split('.')[0] in ('dsr_tpu', 'golden')]\n"
+        "new = {'dsr_tpu_torch.asr.' + m for m in ('tree', 'triphone', 'tritrain', 'adapt.mllr',"
+        " 'adapt.fmllr', 'adapt.sat', 'adapt.vtln')} | {'dsr_tpu_torch.utils.room'}\n"
+        "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods), sorted(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
