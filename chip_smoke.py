@@ -95,7 +95,19 @@ Phases, each of which fails the run loudly:
      through the single mic and MVDR with the JAX test's WER gates;
   13. AD, adaptation on config 1's phone task: MLLR, fMLLR, SAT (host loop
      and batched), MLLR regression classes and VTLN with the JAX tests'
-     gates, each against the CPU plain path on the same inputs.
+     gates, each against the CPU plain path on the same inputs;
+  P (run after phase 6, whose graph and logliks it reuses), BASELINE config
+     4 on a one-rank NCCL group: P1 the graph-sharded decode
+     (`make_sharded_decode` on a (1, 1, 1) mesh) of phase 6's 8 x 1000
+     frames, bitwise against the dense decode, exactly 2 select launches a
+     frame (local recombine and merge), its audio-seconds per second beside
+     the dense decode's in turns and its device-busy share; P2 the n = 2
+     and 4 shard exchange simulated on the card (utterance 0) against the
+     dense decode; P3 the V = 20k trigram graph (config 4's premise) built
+     by the port, the largest shard's tables built on the host at n = 1, 2
+     and 4, and its sharded decode (8 x 100 frames) bitwise against
+     `decode_batch` with the peak device memory of each; P4 ring, Ulysses,
+     halo and pipeline collectives at one rank against the CPU plain path.
 Phase 2 also holds the select kernel's lattice mode to its twin bitwise
 (U = 8 at the four pool shapes, nlat 1 / 3 / 4 / 8, and kcap 155 with nlat
 512) and the synthesis at M = 4096, m = 8, r = 4096 (m r = 32,768, through
@@ -280,6 +292,231 @@ def phase_tri_decode(ctx, cfg_t=None, expect=TRI_V300, n_sents=4):
         print(f"T: {name} sentence 0 token states, arcs and scores card vs CPU plain path "
               f"bitwise equal {same}")
         check(same, f"T: the {name} decode's token tables differ from the CPU plain path's")
+
+
+def profile_frames(fn, frames: int) -> tuple[float, str]:
+    """Device microseconds a frame of fn() (the profiler's kernel time over
+    `frames` frames; 0.0 when the profiler recorded no device time), and the
+    host operations with the most self CPU time, in microseconds a frame."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA) / frames
+    host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    top = ", ".join(f"{e.key[:40]} {e.self_cpu_time_total / frames:.1f} ({e.count // frames})"
+                    for e in host[:8])
+    return busy, top
+
+
+def phase_parallel(ctx, task, tg, ll, kcap=256, beam=40.0):
+    """P, BASELINE config 4 on one card: a one-rank NCCL group (FileStore
+    rendezvous in a temporary directory) and a (1, 1, 1) mesh.  P1 the
+    graph-sharded decode of phase 6's V = 2000 graph and logliks (U x T),
+    bitwise against the dense decode, two select launches a frame; P2 the
+    n = 2 and 4 shard exchange simulated on the card against the dense
+    decode's utterance 0; P3 the V = 20k trigram graph of config 4's
+    premise, built by the port, each shard's tables built on the host at n
+    = 1, 2 and 4, and its sharded decode against the dense one; P4 ring,
+    Ulysses, halo and pipeline collectives against the CPU plain path."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from dsr_tpu_torch.asr import lvcsr
+    from dsr_tpu_torch.asr.decoder import topk_decoder as tk
+    from dsr_tpu_torch.config import MeshConfig
+    from dsr_tpu_torch.parallel import longctx, make_mesh
+    from dsr_tpu_torch.parallel.decoder import (make_sharded_decode, shard_token_graph,
+                                                simulate_sharded_kernel_decode)
+    from dsr_tpu_torch.parallel.mesh import initialize_distributed
+    from dsr_tpu_torch.parallel.pipeline_parallel import pipeline_apply
+
+    dev, smi, bits = ctx.dev, ctx.smi, ctx.bits
+    U, T = ll.shape[:2]
+    lens = np.full(U, T)
+    audio_s = U * T / 125.0
+
+    def dense_tokens(g, x, n_lens, k):
+        st0, sc0 = tk.start_tokens(g, x.shape[0], k)
+        out = tk.token_pass(lambda s_, c_, l_: tk.candidates(g, s_, c_, l_), x, n_lens, st0,
+                            sc0, beam, k)
+        return [t.transpose(0, 1) for t in out[2:5]]
+
+    def same_bits(a, b):
+        return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+    def secs(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_store_") as store:
+        initialize_distributed(f"file://{store}/rendezvous", 1, 0, heartbeat_timeout_s=600,
+                               device="cuda", always=True)
+        try:
+            print(f"P: process group {dist.get_backend()} of {dist.get_world_size()} rank")
+            mesh = make_mesh(MeshConfig())
+
+            # ---- P1: the sharded decode at the decode cell's width
+            t_build = time.perf_counter()
+            run = make_sharded_decode(mesh, task.graph, kcap=kcap, beam=beam, return_tokens=True)
+            t_build = time.perf_counter() - t_build
+            run(ll[:, :20], np.full(U, 20))                            # warm-up
+            out = ctx.counted(f"P1: sharded decode (model 1) {U} x {T} frames",
+                              lambda: run(ll, lens), {"select": 2 * T})
+            ol_d, sc_d = tk.decode_batch(tg, ll, lens, kcap=kcap, beam=beam)
+            same_tok = same_bits(out[3:], dense_tokens(tg, ll, lens, kcap))
+            same_words = torch.equal(out[0], ol_d)
+            same_scores = torch.equal(bits(out[1]), bits(sc_d))
+            spill = int(out[2].sum())
+            print(f"P1: shard tables (1 of 1) placed in {t_build:.2f} s; sharded vs dense decode "
+                  f"(U={U}, T={T}, kcap {kcap}, beam {beam}): token states, arcs and scores "
+                  f"bitwise equal {same_tok}, words equal {same_words}, scores bitwise equal "
+                  f"{same_scores}, spill frames {spill}")
+            check(same_tok and same_words and same_scores and spill == 0,
+                  "P1: the sharded decode differs from the dense decode")
+            plain = make_sharded_decode(mesh, task.graph, kcap=kcap, beam=beam)
+            timing = {"dense": [], "sharded": []}
+            for name in ("dense", "sharded", "sharded", "dense"):
+                fn = (plain if name == "sharded" else
+                      lambda x, n_: tk.decode_batch(tg, x, n_, kcap=kcap, beam=beam))
+                timing[name].append(secs(lambda: fn(ll, lens))[1])
+            t_sh, t_de = (sum(timing[k]) / 2 for k in ("sharded", "dense"))
+            busy, host_ops = profile_frames(lambda: plain(ll[:, :100], np.full(U, 100)), 100)
+            busy_txt = (f"device busy {busy:.1f} us per frame of {t_sh / T * 1e6:.1f} us (idle "
+                        f"share {100 * (1 - busy * 1e-6 / (t_sh / T)):.1f} %)" if busy > 0 else
+                        "device busy share not measured (the profiler recorded no device time)")
+            print(f"P1: sharded decode U={U} T={T} kcap={kcap} beam={beam:g}: {t_sh:.3f} s = "
+                  f"{audio_s / t_sh:.1f} audio-s/s, {t_sh / T * 1e3:.3f} ms per frame; dense "
+                  f"in turns (D S S D) {t_de:.3f} s = {audio_s / t_de:.1f} audio-s/s; sharded / "
+                  f"dense throughput {t_de / t_sh:.3f} (runs {timing}); {busy_txt}  [{smi}]")
+            busy_d, host_d = profile_frames(
+                lambda: tk.decode_batch(tg, ll[:, :100], np.full(U, 100), kcap=kcap, beam=beam), 100)
+            print(f"P1: host operations by self CPU us a frame (calls a frame), sharded: "
+                  f"{host_ops}; dense (device busy {busy_d:.1f} us a frame): {host_d}")
+            del run, plain
+
+            # ---- P2: n >= 2 shards on one card
+            for n in (2, 4):
+                sim, t_sim = secs(lambda: ctx.counted(
+                    f"P2: {n} shards simulated, utterance 0",
+                    lambda: simulate_sharded_kernel_decode(tg, ll[0], n, kcap=kcap, beam=beam),
+                    {"select": 2 * T}))
+                ok = (torch.equal(sim[0], ol_d[0]) and np.float32(sim[1]).view(np.int32)
+                      == sc_d[0].numpy().view(np.int32))
+                print(f"P2: {n} shards on one card, utterance 0 ({T} frames, kcap {kcap}, beam "
+                      f"{beam:g}): {t_sim:.3f} s on the host clock; olabels and score equal to "
+                      f"the dense decode's {ok} (score {sim[1]:.4f})  [{smi}]")
+                check(ok and sim[2] == 0, f"P2: {n} simulated shards differ from the dense decode")
+
+            # ---- P3: config 4's premise graph, V = 20k trigram
+            cfg20 = lvcsr.LvcsrConfig(vocab_size=20_000, n_tokens=300_000, branching=5)
+            with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_graphs_") as cache_dir:
+                os.environ["DSR_TPU_TORCH_CACHE"] = cache_dir
+                try:
+                    task20, t20 = secs(lambda: lvcsr.build_task(cfg20))
+                finally:
+                    del os.environ["DSR_TPU_TORCH_CACHE"]
+            g20 = task20.graph
+            a_max = int(np.bincount(g20.src, minlength=g20.num_states).max())
+            dense_b = g20.num_states * (16 * a_max + 4)
+            print(f"P3: graph build V=20k trigram (the port's WFST core): {g20.num_states} "
+                  f"states, {g20.num_arcs} arcs, a_max {a_max}, {t20:.2f} s "
+                  f"({task20.build_stats}); dense token tables {dense_b} bytes")
+            shard_b = {}
+            for n in (1, 2, 4):
+                sizes, t0 = [], time.perf_counter()
+                for r in range(n):
+                    sh = shard_token_graph(g20, r, n, "cpu")
+                    sizes.append(sum(t.nbytes for t in sh[:5]))
+                    del sh
+                shard_b[n] = max(sizes)
+                print(f"P3: n = {n}: the largest shard's tables {shard_b[n]} bytes "
+                      f"({shard_b[n] / dense_b:.4f} of dense), each built on the host "
+                      f"({time.perf_counter() - t0:.1f} s for all {n})")
+            check(shard_b[1] == dense_b and shard_b[2] < dense_b and shard_b[4] < shard_b[2],
+                  "P3: shard sizes")
+            U20, T20, k20 = 8, 100, 128
+            ll20 = torch.as_tensor(np.random.default_rng(20).standard_normal(
+                (U20, T20, task20.num_pdfs)).astype(np.float32), device=dev)
+            lens20 = np.full(U20, T20)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run20, t_place = secs(lambda: make_sharded_decode(mesh, g20, kcap=k20, beam=beam,
+                                                              return_tokens=True))
+            out20, t_dec = secs(lambda: ctx.counted("P3: sharded decode V=20k",
+                                                    lambda: run20(ll20, lens20),
+                                                    {"select": 2 * T20}))
+            peak_sh = torch.cuda.max_memory_allocated()
+            del run20
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tg20, t_dense = secs(lambda: tk.build_token_graph(g20, device=dev))
+            ol20, sc20 = tk.decode_batch(tg20, ll20, lens20, kcap=k20, beam=beam)
+            same20 = (same_bits(out20[3:], dense_tokens(tg20, ll20, lens20, k20))
+                      and torch.equal(out20[0], ol20) and torch.equal(bits(out20[1]), bits(sc20)))
+            peak_de = torch.cuda.max_memory_allocated()
+            del tg20
+            torch.cuda.empty_cache()
+            print(f"P3: sharded decode (model 1) U={U20} T={T20} kcap {k20} beam {beam:g}: "
+                  f"tables placed in {t_place:.2f} s, decode {t_dec:.3f} s; dense tables "
+                  f"{t_dense:.2f} s; tokens, words and scores bitwise equal to decode_batch "
+                  f"{same20}; spill frames {int(out20[2].sum())}; max_memory_allocated "
+                  f"{peak_sh} bytes sharded, {peak_de} dense (the phase's other tensors "
+                  f"{base} bytes)  [{smi}]")
+            check(same20 and int(out20[2].sum()) == 0, "P3: the V=20k sharded decode differs")
+
+            # ---- P4: the collectives at one rank
+            B, Ta, H, dh, maxd = 2, 1024, 4, 64, 128
+            rng = np.random.default_rng(4)
+            q, k, v = (rng.standard_normal((B, Ta, H, dh)).astype(np.float32) for _ in range(3))
+            bias = (0.1 * rng.standard_normal((2 * maxd + 1, H))).astype(np.float32)
+            mask = np.arange(Ta)[None, :] < np.array([Ta, Ta - 300])[:, None]
+            hx = rng.standard_normal((B, Ta, 16)).astype(np.float32)
+            pw = {"W": (rng.standard_normal((1, 32, 32)) * 0.3).astype(np.float32),
+                  "b": (rng.standard_normal((1, 32)) * 0.1).astype(np.float32)}
+            xs = rng.standard_normal((4, 2, 5, 32)).astype(np.float32)
+            cpu = lambda a: torch.as_tensor(a)                       # noqa: E731
+            gpu = lambda a: torch.as_tensor(a, device=dev)           # noqa: E731
+            pos = torch.arange(Ta)
+            logits = (torch.einsum("bthd,bshd->bhts", cpu(q), cpu(k)) / math.sqrt(dh)
+                      + longctx.relpos_bias_block(cpu(bias), pos, pos, maxd))
+            attn = torch.softmax(torch.where(cpu(mask)[:, None, None, :], logits, -1e30), -1)
+            ref_attn = torch.einsum("bhts,bshd->bthd", attn, cpu(v))
+
+            def layer(p, x):
+                return x + torch.tanh(x @ p["W"] + p["b"])
+            group = mesh.get_group("subband")
+            stages = DeviceMesh("cuda", torch.arange(1), mesh_dim_names=("stage",))
+            cases = {
+                "ring": (lambda: longctx.ring_attention(gpu(q), gpu(k), gpu(v), group, gpu(bias),
+                                                        maxd, kv_mask=gpu(mask)), ref_attn),
+                "ulysses": (lambda: longctx.ulysses_attention(gpu(q), gpu(k), gpu(v), group,
+                                                              gpu(bias), maxd,
+                                                              kv_mask=gpu(mask)), ref_attn),
+                "halo": (lambda: longctx.exchange_halo(gpu(hx), group, 3),
+                         torch.nn.functional.pad(cpu(hx), (0, 0, 3, 3))),
+                "pipeline": (lambda: pipeline_apply(stages, "stage", layer,
+                                                    {n_: gpu(a) for n_, a in pw.items()},
+                                                    gpu(xs)),
+                             layer({n_: cpu(a)[0] for n_, a in pw.items()}, cpu(xs))),
+            }
+            for name, (fn, ref) in cases.items():
+                got, t_fn = secs(fn)
+                err = rel_err(got.cpu(), ref)
+                print(f"P4: {name} at one rank (B={B}, T={Ta}, H={H}, dh={dh} for attention): "
+                      f"card vs CPU plain path rel err {err:.2e} (bound 1e-4), {t_fn * 1e3:.2f} "
+                      f"ms on the host clock  [{smi}]")
+                check(got.shape == ref.shape and err <= 1e-4, f"P4: {name} differs")
+        finally:
+            dist.destroy_process_group()
 
 
 def phase_tri_train(ctx, n_train=30, n_eval=6, ndist=60):
@@ -1757,6 +1994,10 @@ def main() -> int:
           f"{len(words_g)} words, score {score_g:.3f}")
     check(e_frames <= 1e-4, "GSC streamed frames: the card agrees with the CPU plain path")
     check(len(words_g) > 0 and math.isfinite(score_g), "the GSC streaming recogniser gives words")
+
+    # ---- 6P. P: config 4, the graph-sharded decode and the collectives ------
+    phase_parallel(types.SimpleNamespace(dev=dev, smi=smi, counted=counted, bits=bits), task, tg,
+                   ll, kcap=kcap, beam=beam)
 
     # ---- 7. BASELINE config 1 ------------------------------------------------
     # The synthetic corpus (the port's copy of golden/corpus.py), MFCC + CMN

@@ -174,19 +174,30 @@ def _backtrack(tok_states: np.ndarray, tok_arcs: np.ndarray, best_state: np.ndar
     return arcs, valid
 
 
-def traceback_tables(graph, tok_states, tok_arcs, states_f, scores_f, lengths, source_of):
-    """The traceback of either decoder: the (T, U, K) token tables and the
-    final carry (U, K) → (olabels (U, T), scores (U,)), CPU tensors.  The
-    token tables come to the host once; the final weights and olabels are
-    looked up on the graph's device, so no whole table is copied."""
+def traceback_lookups(tok_states, tok_arcs, states_f, scores_f, lengths, source_of, final_of,
+                      olabel_of):
+    """The traceback of every top-K decoder: the (T, U, K) token tables and
+    the final carry (U, K) → (olabels (U, T), scores (U,)), CPU tensors.
+    final_of(states) and olabel_of(arcs) look up the final weights of
+    states and the olabels of arc ids given as tensors on the carry's
+    device; source_of maps host arc ids to their source states.  The token
+    tables come to the host once, and no whole graph table is copied."""
     best_state, best_score = _best_final(states_f.cpu().numpy(), scores_f.cpu().numpy(),
-                                         graph.final_weight[states_f].cpu().numpy())
+                                         final_of(states_f).cpu().numpy())
     arcs, valid = _backtrack(tok_states.cpu().numpy(), tok_arcs.cpu().numpy(), best_state,
                              lengths, source_of)
-    dev = graph.olabel.device
-    olabs = graph.olabel.reshape(-1)[torch.as_tensor(arcs, device=dev)]
-    olabs = torch.where(torch.as_tensor(valid, device=dev), olabs, 0)
+    dev = states_f.device
+    olabs = torch.where(torch.as_tensor(valid, device=dev),
+                        olabel_of(torch.as_tensor(arcs, device=dev)), 0)
     return olabs.T.contiguous().cpu(), torch.from_numpy(best_score)
+
+
+def traceback_tables(graph, tok_states, tok_arcs, states_f, scores_f, lengths, source_of):
+    """The traceback of the dense and split decoders, over the graph's own
+    final-weight and olabel tables (`traceback_lookups`)."""
+    return traceback_lookups(tok_states, tok_arcs, states_f, scores_f, lengths, source_of,
+                             lambda s: graph.final_weight[s],
+                             lambda a: graph.olabel.reshape(-1)[a])
 
 
 def _traceback(graph: TokenGraph, tok_states, tok_arcs, states_f, scores_f, lengths):

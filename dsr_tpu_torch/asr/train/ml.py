@@ -2,9 +2,9 @@
 and the M-step (PyTorch).
 
 Counterpart of `dsr_tpu/asr/train/ml.py`: the E-step is einsums over
-(T, S, C) posteriors on the device of the features; the cross-device sum of
-accumulators (`psum_accum`) belongs to the parallel layer, which is not
-ported yet.
+(T, S, C) posteriors on the device of the features; `psum_accum` sums the
+accumulators of data-parallel ranks over their process group (the mesh's
+`data` group, `dsr_tpu_torch/parallel/`).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from dsr_tpu_torch.asr.am.gmm import GmmParams, component_posteriors
 
@@ -43,6 +44,15 @@ def accumulate(p: GmmParams, feats: torch.Tensor, gamma: torch.Tensor,
     sx = torch.einsum("...tsc,...td->scd", w, feats)
     sxx = torch.einsum("...tsc,...td->scd", w, feats**2)
     return GmmAccum(acc.occ + occ, acc.sx + sx, acc.sxx + sxx)
+
+
+def psum_accum(acc: GmmAccum, group=None) -> GmmAccum:
+    """Every field summed over the ranks of `group` (an all-reduce SUM of
+    one flat buffer), the same result on each rank."""
+    flat = torch.cat([a.reshape(-1) for a in acc])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    return GmmAccum(*(part.view_as(a) for part, a in
+                      zip(flat.split([a.numel() for a in acc]), acc)))
 
 
 def mstep(acc: GmmAccum, var_floor: float = 1e-3, min_occ: float = 1e-2) -> GmmParams:

@@ -1,14 +1,17 @@
-"""Typed configuration for the PyTorch front end.
+"""Typed configuration for the PyTorch port: the front end and the device mesh.
 
-A copy of the front-end dataclasses of `dsr_tpu/config.py` (same fields,
-defaults and derived properties), kept here so that the port imports
-nothing of the JAX package.
+A copy of the front-end and mesh dataclasses of `dsr_tpu/config.py` (same
+fields, defaults and derived properties) and of its JSON helpers, kept here
+so that the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 from dataclasses import dataclass
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -98,3 +101,25 @@ class FrontendConfig:
     delta_window: int = 2
     cmn: bool = True
     vtln_warp: float = 1.0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical device mesh: data (utterance batch), model (AM/graph shards),
+    subband (sequence-parallel axis over the M filterbank bins)."""
+
+    data: int = 1
+    model: int = 1
+    subband: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.model * self.subband
+
+
+def to_json(cfg: Any) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2)
+
+
+def from_json(cls, s: str):
+    return cls(**json.loads(s))

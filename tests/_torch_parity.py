@@ -437,3 +437,41 @@ def synthesis_device_route(A, gf, M, m, r, start, out_len, t_lo, nrows):
         ok = (t >= 0) & (t < T)
         y[:, ok] += gf[d[ok] + jj * D] * v[:, t[ok] - t_lo, (jj % r) * D + d[ok]]
     return y.astype(np.float32)
+
+
+# ---------------------------------------------------------------- parallel
+
+
+def phone_hclg_system():
+    """The phone task's bigram HCLG and eval log-likelihoods of
+    tests/test_parallel.py's `system` fixture, built with the port: the
+    6-word phone task, GMMs trained on 25 corpus utterances (3 iterations,
+    on the CPU), the graph composed by the port's WFST core, and the
+    log-likelihoods of the seed-55 eval utterances → (task, PackedGraph,
+    [ll (T_i, P) float32 numpy])."""
+    from dsr_tpu_torch.asr import phone_task
+    from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.fsm import hclg, lm
+    from dsr_tpu_torch.asr.fsm.packed import pack
+    from dsr_tpu_torch.asr.train import trainer
+    from dsr_tpu_torch.ops import features as ft
+    from dsr_tpu_torch.utils import corpus
+
+    def feats_of(x):
+        return ft.cmn(ft.mfcc(torch.as_tensor(np.asarray(x, np.float32)), SR)).numpy()
+
+    task = phone_task.PhoneTask(corpus.VOCAB[:6], states_per_phone=2)
+    utts = [(ws, x) for ws, x in corpus.make_corpus(40, seed=0)
+            if all(w in task.vocab for w in ws)][:25]
+    transcripts = [ws for ws, _ in utts]
+    params = trainer.train(task, [feats_of(x) for _, x in utts], transcripts, num_comp=2,
+                           iters=3, device="cpu")
+    G = lm.arpa_to_fst(lm.train_arpa_bigram(transcripts, task.vocab), task.words)
+    L, ndis = hclg.build_lexicon_fst(task.lexicon, task.phones, task.words, sil_phone="sil")
+    P = len(task.phones) - 1
+    H = hclg.build_hmm_fst(P, ndis, states_per_phone=task.spp)
+    graph = pack(hclg.compose_hclg(H, L, G, P, ndis))
+    evals = [(ws, x) for ws, x in corpus.make_corpus(4, seed=55)
+             if all(w in task.vocab for w in ws)] or [utts[0]]
+    lls = [gmm.loglik(params, torch.as_tensor(feats_of(x))).numpy() for _, x in evals]
+    return task, graph, lls
