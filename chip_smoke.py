@@ -80,20 +80,39 @@ Phases, each of which fails the run loudly:
      staged once on the card, every buffer by int and by device index
      against the unstaged fused kernel, bitwise, and a serving loop over
      the bank with no host readback;
-  11. T, the triphone LVCSR decode: the V = 300 triphone task built by the
+  11. FE, the rest of the front end (slice 8): FE1 a barge-in front end
+     at config 2's width (64-mic circular 0.20 m, 8 s, M = 256 m = 4 r =
+     2) on a recording made here (a talker at SOURCE in two bursts, a
+     loudspeaker 0.3 m from the array playing a prompt throughout, 20 dB
+     sensor SNR): fused analysis + MVDR -> the prompt's analysis ->
+     voice-prompt NLMS and Kalman AEC -> Sohn and energy VADs, segments ->
+     spectral subtraction -> synthesis -> 400 / 160 Hamming frames ->
+     warped-MVDR cepstra (order 30) -> deltas -> splice, exactly analysis
+     / analysis_beamform / synthesis 1 each, card against the CPU plain
+     path (1e-4 subbands and waveform, 1e-3 cepstra, equal decisions but
+     at the threshold), the SAD gates (hits >= 0.9, false alarms <= 0.2),
+     ERLE, SI-SDR / segSNR / fwSegSNR with and without AEC, each stage's
+     ms and the frame loops' device-busy share; FE2 the designed
+     prototypes of M = 128 and 512 (no shipped file) through the kernels
+     against their twins and reconstruction < -50 dB, the fused kernel at
+     M = 512 on 64 ch x 8 s; FE3 the cosine-modulated and PR-FFT banks
+     and overlap-add / -save (4,096 taps) on FE1's recording, card against
+     CPU; FE4 a 32-mic open sphere's modal beamformer (order 3) on four
+     5 m sources, card against CPU, the on-look / off-look power ratio;
+  12. T, the triphone LVCSR decode: the V = 300 triphone task built by the
      port (its figures against the JAX package's), its analytic tied AM on
      the card, 4 in-domain sentences through the dense decoder (kcap 192)
      and the degree-split one (an `eg` sized from the graph, no overflowed
      frame), exact words, one select launch per frame, and sentence 0's
      token tables against the CPU plain path's, bitwise;
-  12. TT, tied triphones trained from audio (tests/test_tritrain_wer.py's
+  13. TT, tied triphones trained from audio (tests/test_tritrain_wer.py's
      system): 30 reverberant 8-mic recordings (utils/room.py) -> MVDR
      (analysis -> weights -> synthesis) -> MFCC + CMN -> monophone EM ->
      one banded-kernel alignment per utterance -> tree -> tied EM, the
      tree and tied parameters against the CPU plain path's, then the
      60-distractor triphone and monophone graphs and 6 eval utterances
      through the single mic and MVDR with the JAX test's WER gates;
-  13. AD, adaptation on config 1's phone task: MLLR, fMLLR, SAT (host loop
+  14. AD, adaptation on config 1's phone task: MLLR, fMLLR, SAT (host loop
      and batched), MLLR regression classes and VTLN with the JAX tests'
      gates, each against the CPU plain path on the same inputs;
   P (run after phase 6, whose graph and logliks it reuses), BASELINE config
@@ -836,6 +855,357 @@ def phase_adapt(ctx):
     check(abs(b0 - 1.0) <= 0.05, "AD: VTLN keeps an unwarped speaker at 1.0")
     check(abs(b1 - 1.0 / 1.1) <= 0.051 and s1[b1] > s1[1.0] + 1.0, "AD: VTLN recovers the warp")
     check(b1 == best_c and e_v <= 1e-3, "AD: VTLN, card vs CPU")
+
+
+# ---- FE, slice 8: the rest of the front end ---------------------------------
+LOUDSPEAKER = np.array([0.0, -0.3, 0.05])  # the prompt's loudspeaker, 0.3 m from the array
+PROMPT_GAIN = 4.0      # the free-field simulation has no 1/r: at 0.3 m against the talker's
+                       # 2 m the prompt's echo is ~16 dB louder at equal source levels
+PROMPT_MU = 0.2        # NLMS step of the voice-prompt canceller: the talker barges in over
+                       # the prompt and misadjusts the filter, which a step of 0.2 undoes
+                       # within ~0.3 s
+SOHN_THRESHOLD = 1.0   # on noise of a known PSD Sohn's decision-directed mean ratio sits
+                       # just above 0, so the default threshold 0 fires on silence
+SAD_MARGIN = 1e-5      # a card decision may differ from the CPU's only this close to its threshold
+
+
+def stage_ms(fn, iters: int = 3) -> float:
+    """Device ms of one fn() (CUDA events over `iters` calls after a warm-up)."""
+    return cuda_ms(fn, iters=iters, warmup=1)
+
+
+def busy_share(fn, ms: float) -> float:
+    """The share of fn()'s `ms` in which the card ran a kernel (profiler)."""
+    return profile_frames(fn, 1)[0] / 1e3 / ms
+
+
+def energy_margins(P_frames: np.ndarray, threshold_db: float = 6.0) -> np.ndarray:
+    """|log power - (floor + threshold)| of each frame: `sad.energy_vad`'s
+    floor recurrence in float32 numpy, the arithmetic of the JAX scan."""
+    logp = (10.0 * np.log10(np.maximum(P_frames, 1e-12))).astype(np.float32)
+    floor = logp[0]
+    out = np.empty_like(logp)
+    for t, lp in enumerate(logp):
+        if lp < floor:
+            floor = np.float32(0.9) * floor + np.float32(0.1) * lp
+        else:
+            floor = floor + np.float32(0.05)
+        out[t] = abs(lp - (floor + np.float32(threshold_db)))
+    return out
+
+
+def same_decisions(name, dec, dec_cpu, margin_cpu, hangover=8) -> int:
+    """Card decisions against the CPU's: every differing frame must lie
+    within the hangover after a frame whose CPU margin to the threshold is
+    under SAD_MARGIN.  → the number of frames that differ."""
+    diff = np.flatnonzero(dec != dec_cpu)
+    near = np.flatnonzero(margin_cpu < SAD_MARGIN)
+    ok = all(((t - near >= 0) & (t - near <= hangover)).any() for t in diff)
+    check(ok, f"FE1: {name} decisions differ from the CPU's away from the threshold "
+              f"(frames {diff[:10].tolist()})")
+    return len(diff)
+
+
+def phase_fe1(ctx):
+    """FE1, a barge-in front end at config 2's width: 64-mic circular 0.20 m
+    array, 8 s, M = 256 m = 4 r = 2.  Returns the recording for FE3."""
+    from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig
+    from dsr_tpu_torch.ops import aec, lpc, sad
+    from dsr_tpu_torch.ops import features as ft
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.pipeline import DsrPipeline
+    from dsr_tpu_torch.utils import objective, room
+
+    dev, cfg, smi = ctx.dev, ctx.cfg, ctx.smi
+    S = int(8 * SR)
+    rng = np.random.default_rng(21)
+    geo = ArrayGeometry.circular(64, 0.20)
+    pos = np.asarray(geo.positions)
+    bursts = [(1.5, 3.0), (4.5, 6.5)]                       # seconds the talker speaks
+    talking = np.zeros(S, bool)
+    for a, b in bursts:
+        talking[int(a * SR):int(b * SR)] = True
+    talk = rng.standard_normal(S) * talking
+    prompt = PROMPT_GAIN * rng.standard_normal(S)
+    t0 = time.perf_counter()
+    x = (room.simulate(talk, pos, SOURCE, SR, snr_db=20.0, rng=rng)
+         + room.simulate(prompt, pos, LOUDSPEAKER, SR, snr_db=None, rng=rng))
+    sim_s = time.perf_counter() - t0
+    w = DsrPipeline(fb=cfg, geometry=geo, beamformer=BeamformerConfig(kind="mvdr"),
+                    device=dev).weights(SOURCE)
+    hamming = np.hamming(400).astype(np.float32)
+
+    def chain(x_, prompt_, w_):
+        """The barge-in chain on the device of its inputs."""
+        win = torch.as_tensor(hamming, device=x_.device)
+        Y = fb.analysis_beamform(x_, w_, cfg)                      # (T, K), row 3
+        F = fb.analysis(prompt_, cfg)                              # row 1
+        E, _ = aec.cancel_voice_prompt(Y, F, taps=4, mu=PROMPT_MU)
+        Ek, _ = aec.kalman_aec(Y, F, taps=4)
+        P = E.abs() ** 2
+        noise = P[:20].mean(0)
+        dec, llr = sad.sohn_vad(P, noise, threshold=SOHN_THRESHOLD)
+        Pss = ft.spectral_subtraction(P, noise)
+        y = fb.synthesis(E, cfg, S)                                # row 4
+        frames = y.unfold(-1, 400, 160) * win                     # (798, 400)
+        pfr = (frames ** 2).mean(-1)
+        edec = sad.energy_vad(pfr)
+        c = lpc.warped_mvdr_cepstra(frames, order=30, num_bins=129, num_cepstra=13)
+        feats = ft.splice(ft.add_deltas(c), 3, 3)
+        return dict(Y=Y, F=F, E=E, Ek=Ek, P=P, dec=dec, llr=llr, Pss=Pss, y=y, frames=frames,
+                    pfr=pfr, edec=edec, c=c, feats=feats)
+
+    xd = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    pd = torch.as_tensor(prompt, dtype=torch.float32, device=dev)
+    chain(xd, pd, w)                                                 # warm-up
+    out, chain_s = ctx.timed(lambda: ctx.counted(
+        "FE1: barge-in front end (64 ch x 8 s, MVDR, prompt AEC, SAD, warped MVDR)",
+        lambda: chain(xd, pd, w), {"analysis_beamform": 1, "analysis": 1, "synthesis": 1}))
+    t0 = time.perf_counter()
+    segs = sad.segments_from_vad(out["dec"])
+    segs_s = time.perf_counter() - t0
+    ref = chain(torch.as_tensor(x, dtype=torch.float32), torch.as_tensor(prompt,
+                                                                         dtype=torch.float32),
+                w.cpu())
+    T, K = ref["Y"].shape
+    check(out["y"].shape == (S,) and out["feats"].shape == (798, 7 * 39) and T == 1015
+          and K == 129, "FE1: shapes")
+    check(all(bool(torch.isfinite(v).all()) for v in out.values()), "FE1: finite outputs")
+    errs = {k: rel_err(out[k].cpu(), ref[k]) for k in ("Y", "F", "E", "Ek", "Pss", "y")}
+    errs_c = {k: rel_err(out[k].cpu(), ref[k]) for k in ("c", "feats")}
+    print(f"FE1 card vs CPU plain path: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + " (gate 1e-4); " + ", ".join(f"{k} {v:.2e}" for k, v in errs_c.items())
+          + " (gate 1e-3)")
+    check(max(errs.values()) <= 1e-4, "FE1: subbands and waveform, card vs CPU")
+    check(max(errs_c.values()) <= 1e-3, "FE1: cepstra, card vs CPU")
+    dec, edec = out["dec"].cpu().numpy(), out["edec"].cpu().numpy()
+    n_sohn = same_decisions("sohn_vad", dec, ref["dec"].numpy(),
+                            np.abs(ref["llr"].numpy() - SOHN_THRESHOLD))
+    n_energy = same_decisions("energy_vad", edec, ref["edec"].numpy(),
+                              energy_margins(ref["pfr"].numpy()))
+    segs_cpu = sad.segments_from_vad(ref["dec"])
+    print(f"FE1 decisions differing from the CPU's (each within the hangover after a frame "
+          f"under {SAD_MARGIN:g} of the threshold): sohn {n_sohn}, energy {n_energy}; segments "
+          f"{segs} (CPU {segs_cpu})")
+    check(n_sohn > 0 or segs == segs_cpu, "FE1: segments, card vs CPU")
+
+    # SAD against the talker's bursts: frames well inside a burst, and
+    # silent frames away from a burst by the hangover and the frame's span
+    t_sb = (np.arange(T) * cfg.D - (cfg.L - cfg.D) + cfg.L // 2) / SR   # subband frame centres
+    t_fr = (np.arange(len(edec)) * 160 + 200) / SR                       # 400 / 160 frames
+
+    def regions(t, span):
+        inside = np.zeros(len(t), bool)
+        silent = np.ones(len(t), bool)
+        for a, b in bursts:
+            inside |= (t > a + span) & (t < b - span)
+            silent &= (t < a - span) | (t > b + span + 0.15)
+        return inside, silent & (t > span)
+
+    gates = {}
+    for name, d, t, span in (("sohn", dec, t_sb, 0.07), ("energy", edec, t_fr, 0.03)):
+        inside, silent = regions(t, span)
+        gates[name] = (float(d[inside].mean()), float(d[silent].mean()))
+        check(gates[name][0] >= 0.9 and gates[name][1] <= 0.2,
+              f"FE1: {name} VAD hits {gates[name][0]:.3f} (>= 0.9), false alarms "
+              f"{gates[name][1]:.3f} (<= 0.2)")
+    inside, silent = regions(t_sb, 0.07)
+    Yp = (out["Y"].abs() ** 2)[torch.as_tensor(silent, device=dev)].sum()
+    erle = {k: float(10 * torch.log10(Yp / (out[k].abs() ** 2)[
+        torch.as_tensor(silent, device=dev)].sum())) for k in ("E", "Ek")}
+    y0 = fb.synthesis(out["Y"], cfg, S).cpu().numpy().astype(np.float64)   # without AEC
+    y1 = out["y"].cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    scores = {k: (getattr(objective, k)(y1, talk), getattr(objective, k)(y0, talk))
+              for k in ("si_sdr", "segmental_snr", "fw_segmental_snr")}
+    obj_s = time.perf_counter() - t0
+    print(f"FE1: recording simulated in {sim_s:.2f} s on the host; chain {chain_s * 1e3:.1f} ms "
+          f"on the host clock; ERLE over the talker-silent frames: NLMS prompt canceller "
+          f"{erle['E']:.2f} dB, Kalman {erle['Ek']:.2f} dB; SAD (hits, false alarms): "
+          + ", ".join(f"{k} ({h:.3f}, {f:.3f})" for k, (h, f) in gates.items())
+          + " (gates >= 0.9, <= 0.2); with / without AEC: "
+          + ", ".join(f"{k} {a:.2f} / {b:.2f} dB" for k, (a, b) in scores.items())
+          + f"; segments_from_vad {segs_s * 1e3:.2f} ms, objective measures {obj_s:.2f} s "
+          f"on the host")
+
+    # each stage on the card's clock; the frame loops' device-busy share
+    Y, F, E, P = out["Y"], out["F"], out["E"], out["P"]
+    noise = P[:20].mean(0)
+    frames = out["frames"]
+    r = lpc.warped_autocorr(frames, 30)
+    stages = {
+        "analysis_beamform": lambda: fb.analysis_beamform(xd, w, cfg),
+        "analysis (prompt)": lambda: fb.analysis(pd, cfg),
+        "cancel_voice_prompt": lambda: aec.cancel_voice_prompt(Y, F, taps=4, mu=PROMPT_MU),
+        "kalman_aec": lambda: aec.kalman_aec(Y, F, taps=4),
+        "sohn_vad": lambda: sad.sohn_vad(P, noise, threshold=SOHN_THRESHOLD),
+        "spectral_subtraction": lambda: ft.spectral_subtraction(P, noise),
+        "synthesis": lambda: fb.synthesis(E, cfg, S),
+        "energy_vad": lambda: sad.energy_vad(out["pfr"]),
+        "warped_autocorr": lambda: lpc.warped_autocorr(frames, 30),
+        "levinson": lambda: lpc.levinson(r),
+        "warped_mvdr_cepstra": lambda: lpc.warped_mvdr_cepstra(frames, order=30),
+        "add_deltas + splice": lambda: ft.splice(ft.add_deltas(out["c"]), 3, 3),
+    }
+    ms = {k: stage_ms(fn) for k, fn in stages.items()}
+    loops = ("cancel_voice_prompt", "kalman_aec", "sohn_vad", "energy_vad", "levinson",
+             "warped_autocorr", "warped_mvdr_cepstra")
+    busy = {k: busy_share(stages[k], ms[k]) for k in loops}
+    print(f"FE1 stages (ms, CUDA events) [{smi}]: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    print(f"FE1 device-busy share (profiler) [{smi}]: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in busy.items())
+          + f"; warped_autocorr {2 * 30 * 798 * 400 * 400 / ms['warped_autocorr'] / 1e6:.1f} "
+          f"GFLOP/s ({2 * 30 * 798 * 400 * 400 / 1e9:.2f} GFLOP)")
+    return x
+
+
+def phase_fe2(ctx):
+    """FE2: configs without a shipped prototype, designed by `get_prototypes`."""
+    from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig, FilterbankConfig
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.ops.cuda import filterbank as cfb
+    from dsr_tpu_torch.pipeline import DsrPipeline
+    from dsr_tpu_torch.utils import design
+
+    dev, smi = ctx.dev, ctx.smi
+    rng = np.random.default_rng(22)
+    x8 = torch.as_tensor(rng.standard_normal((8, int(4 * SR))).astype(np.float32), device=dev)
+    S8 = x8.shape[-1]
+    for M in (128, 512):
+        c = FilterbankConfig(M=M, m=4, r=2)
+        check(not (design.PROTOTYPE_DIR / f"proto-M{M}-m4-r2-b1-j2.npz").exists(),
+              f"FE2: M={M} has no shipped prototype")
+        t0 = time.perf_counter()
+        hf, gf, delay = design.get_prototypes(c)
+        design_s = time.perf_counter() - t0
+        pr_db = design.pr_error_db(hf, gf, M, 4, 2)
+        A, y = ctx.counted(f"FE2: analysis -> synthesis M={M} m=4 r=2 (8 ch x 4 s)",
+                           lambda: (lambda A_: (A_, fb.synthesis(A_, c, S8)))(fb.analysis(x8, c)),
+                           {"analysis": 1, "synthesis": 1})
+        hf_t, gf_t, _ = fb.prototype_tensors(c, dev)
+        e_a = rel_err(A, cfb.analysis_plain(x8, hf_t, M, c.r, A.shape[-2]))
+        e_s = rel_err(y, cfb.synthesis_plain(A, gf_t, M, c.r, c.L - c.D + delay, S8))
+        rt_db = 20 * float(torch.log10((y - x8).abs().max() / x8.abs().max()))
+        line = (f"FE2 M={M} m=4 r=2 designed in {design_s:.2f} s on the host, PR error "
+                f"{pr_db:.1f} dB; kernels vs twins: analysis {e_a:.2e}, synthesis {e_s:.2e} "
+                f"(gate {TOL:g}); reconstruction {rt_db:.1f} dB (gate < -50)")
+        check(e_a <= TOL and e_s <= TOL, f"FE2 M={M}: kernels against their twins")
+        check(rt_db < -50.0, f"FE2 M={M}: reconstruction")
+        if M == 512:
+            geo = ArrayGeometry.circular(64, 0.20)
+            x64 = torch.as_tensor(rng.standard_normal((geo.num_channels, int(8 * SR))).astype(
+                np.float32), device=dev)
+            w = DsrPipeline(fb=c, geometry=geo, beamformer=BeamformerConfig(kind="mvdr"),
+                            device=dev).weights(SOURCE)
+            Yb = ctx.counted("FE2: analysis_beamform M=512 (64 ch x 8 s, MVDR)",
+                             lambda: fb.analysis_beamform(x64, w, c), {"analysis_beamform": 1})
+            e_b = rel_err(Yb, cfb.analysis_beamform_plain(x64, hf_t, w, M, c.r, Yb.shape[0]))
+            check(e_b <= TOL, "FE2 M=512: the fused kernel against its twin")
+            line += (f"; analysis_beamform 64 ch x 8 s {e_b:.2e}, "
+                     f"{stage_ms(lambda: fb.analysis_beamform(x64, w, c), 10):.4f} ms")
+        print(line + f"; analysis {stage_ms(lambda: fb.analysis(x8, c), 10):.4f} ms, synthesis "
+              f"{stage_ms(lambda: fb.synthesis(A, c, S8), 10):.4f} ms [{smi}]")
+
+
+def phase_fe3(ctx, x):
+    """FE3: the cosine-modulated and PR-FFT banks and the FIR filters on
+    FE1's 64 ch x 8 s recording, card against the CPU plain path."""
+    from dsr_tpu_torch.ops import cmfb, convolution, prfft
+
+    dev, smi = ctx.dev, ctx.smi
+    S = x.shape[-1]
+    xc = torch.as_tensor(x, dtype=torch.float32)
+    xd = xc.to(dev)
+    d = cmfb.design(64, 8)
+    L = d.ha.shape[1]
+    rng = np.random.default_rng(23)
+    h = (rng.standard_normal(4096) * np.exp(-np.arange(4096) / 600.0)).astype(np.float32)
+    cases = {
+        "cmfb M=64 m=8": (lambda x_: cmfb.synthesis(cmfb.analysis(x_, d), d, S), 2 * L),
+        "prfft M=512 D=256": (lambda x_: prfft.synthesis(prfft.analysis(x_, 512, 256), 512, 256,
+                                                         S), 0),
+        "prfft M=512 D=128": (lambda x_: prfft.synthesis(prfft.analysis(x_, 512, 128), 512, 128,
+                                                         S), 0),
+        "overlap_add 4096 taps": (lambda x_: convolution.overlap_add(x_, h, 4096), None),
+        "overlap_save 4096 taps": (lambda x_: convolution.overlap_save(x_, h, 4096), None),
+    }
+    parts = []
+    for name, (fn, edge) in cases.items():
+        y = fn(xd)
+        y_cpu = fn(xc)
+        e = rel_err(y.cpu(), y_cpu)
+        check(bool(torch.isfinite(y).all()) and e <= 1e-4, f"FE3 {name}: card vs CPU {e:.2e}")
+        if edge is None:
+            rec = ""
+        else:
+            seg = slice(edge, S - edge)
+            rec_db = 20 * float(torch.log10((y[:, seg] - xd[:, seg]).abs().max()
+                                            / xd.abs().max()))
+            rec = f", reconstruction {rec_db:.1f} dB"
+        parts.append(f"{name} {e:.2e}{rec}, {stage_ms(lambda: fn(xd)):.3f} ms")
+    e_os = rel_err(cases["overlap_save 4096 taps"][0](xd), cases["overlap_add 4096 taps"][0](xd))
+    print(f"FE3 64 ch x 8 s, card vs CPU plain path (gate 1e-4), analysis -> synthesis: "
+          + "; ".join(parts) + f"; overlap-save vs overlap-add {e_os:.2e} [{smi}]")
+
+
+def phase_fe4(ctx):
+    """FE4: the modal beamformer of a 32-mic open sphere (radius 4.2 cm, order 3)."""
+    from dsr_tpu_torch.config import FilterbankConfig
+    from dsr_tpu_torch.ops import beamforming as bf
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.ops import modal
+    from dsr_tpu_torch.utils import room
+
+    dev, smi, cfg = ctx.dev, ctx.smi, ctx.cfg
+    radius, order = 0.042, 3
+    dirs = modal.sphere_mic_dirs(32)
+    look = np.array([np.pi / 2, 0.0])
+    w2 = modal.modal_weights(order, 2.0, dirs, look, reg=1e-3)     # the JAX test's gate
+    on = abs(np.conj(w2) @ modal.plane_wave_pressure(order, 2.0, dirs, look))
+    off = [abs(np.conj(w2) @ modal.plane_wave_pressure(order, 2.0, dirs, np.array([np.pi / 2, az])))
+           for az in (1.2, 2.2, 3.0)]
+    check(on > 0.5 and max(off) < 0.6 * on, "FE4: modal weights at ka = 2 steer")
+    t0 = time.perf_counter()
+    W = modal.modal_weights_subband(order, radius, cfg.M, SR, dirs, look)
+    w_s = time.perf_counter() - t0
+    u = np.stack([np.sin(dirs[:, 0]) * np.cos(dirs[:, 1]), np.sin(dirs[:, 0]) * np.sin(dirs[:, 1]),
+                  np.cos(dirs[:, 0])], axis=1)
+    mics = radius * u
+    rng = np.random.default_rng(24)
+    S = int(4 * SR)
+    azs = (0.0, 1.2, 2.2, 3.0)                                       # the look direction first
+    x = np.stack([room.simulate(rng.standard_normal(S), mics,
+                                5.0 * np.array([np.cos(az), np.sin(az), 0.0]), SR, snr_db=None)
+                  for az in azs]).astype(np.float32)                  # (4, 32, S)
+
+    def chain(x_, W_):
+        return fb.synthesis(bf.apply_weights(fb.analysis(x_, cfg), W_), cfg, S)
+
+    Wd = torch.as_tensor(W, device=dev)
+    xd = torch.as_tensor(x, device=dev)
+    y = ctx.counted("FE4: modal beamformer (4 sources x 32 ch x 4 s)", lambda: chain(xd, Wd),
+                    {"analysis": 1, "synthesis": 1})
+    y_cpu = chain(torch.as_tensor(x), torch.as_tensor(W))
+    e = rel_err(y.cpu(), y_cpu)
+    check(bool(torch.isfinite(y).all()) and e <= 1e-4, f"FE4: card vs CPU {e:.2e}")
+    p = (y.double() ** 2).mean(-1).cpu().numpy()
+    print(f"FE4 modal 32-mic sphere r=4.2 cm order 3: weights (129 bins) {w_s:.3f} s on the "
+          f"host; ka=2 gains on {on:.3f}, off {[round(float(g), 3) for g in off]} (gates > 0.5, "
+          f"< 0.6 x on); card vs CPU {e:.2e} (gate 1e-4); broadband output power on-look / "
+          f"off-look (az 1.2, 2.2, 3.0): "
+          + ", ".join(f"{10 * np.log10(p[0] / p[i]):.2f} dB" for i in (1, 2, 3))
+          + f"; chain {stage_ms(lambda: chain(xd, Wd)):.3f} ms [{smi}]")
+
+
+def phase_frontend(ctx):
+    """FE, slice 8: FE1-FE4; prints the launches the phase added."""
+    before = dict(ctx.counts)
+    x = phase_fe1(ctx)
+    phase_fe2(ctx)
+    phase_fe3(ctx, x)
+    phase_fe4(ctx)
+    print(f"FE launches: { {k: v - before[k] for k, v in ctx.counts.items() if v != before[k]} }")
 
 
 def main() -> int:
@@ -2313,9 +2683,13 @@ def main() -> int:
         4 * (64 * S64 + cfg.L) + 8 * K * 64 + 8 * T64 * K,
         64 * T64 * (2 * cfg.L + rfft_flops(cfg.M) + 8 * K))
 
-    # ---- 11-13. T, TT and AD: triphones and adaptation ----------------------
+    # ---- 11. FE: the rest of the front end (slice 8) --------------------------
     ctx = types.SimpleNamespace(dev=dev, smi=smi, cfg=cfg, counted=counted, timed=timed,
-                                bits=bits, host_copy=host_copy, wer_of=wer_of, c1_feats=c1_feats)
+                                counts=counts, bits=bits, host_copy=host_copy, wer_of=wer_of,
+                                c1_feats=c1_feats)
+    phase_frontend(ctx)
+
+    # ---- 12-14. T, TT and AD: triphones and adaptation ---------------------
     phase_tri_decode(ctx)
     phase_tri_train(ctx)
     phase_adapt(ctx)

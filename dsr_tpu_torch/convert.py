@@ -15,6 +15,7 @@ from dsr_tpu_torch.asr import tree as ptree
 from dsr_tpu_torch.asr.adapt import mllr
 from dsr_tpu_torch.asr.am.gmm import GmmParams
 from dsr_tpu_torch.asr.fsm.packed import PackedGraph
+from dsr_tpu_torch.ops.cmfb import CmfbDesign
 
 
 def gmm_params(p, device=None) -> GmmParams:
@@ -43,6 +44,13 @@ def prototypes(hf, gf, delay, device=None) -> tuple[torch.Tensor, torch.Tensor, 
     return (torch.as_tensor(np.array(hf, np.float32), device=device),
             torch.as_tensor(np.array(gf, np.float32), device=device),
             int(delay))
+
+
+def cmfb_design(d) -> CmfbDesign:
+    """`golden.cmfb.CmfbDesign` (ha, hs, M, delay, gain) → the port's, with
+    its filters copied as float64 arrays."""
+    return CmfbDesign(np.array(d.ha, np.float64), np.array(d.hs, np.float64), int(d.M),
+                      int(d.delay), float(d.gain))
 
 
 def distrib_tree(t) -> ptree.DistribTree:

@@ -1,13 +1,15 @@
-"""Subband-domain MFCC and cepstral mean normalisation (PyTorch).
+"""Subband-domain MFCC, CMN, deltas, splicing and spectral subtraction (PyTorch).
 
-Counterpart of `mfcc_from_subbands` and `cmn` in `dsr_tpu/ops/features.py`:
-beamformed subband power goes straight into the mel matrix, with no
-resynthesis.  The mel projection and DCT are float32 matmuls; they stay in
-full float32 on the card because the entry points turn TF32 off
+Counterpart of `dsr_tpu/ops/features.py`: beamformed subband power goes
+straight into the mel matrix (`mfcc_from_subbands`), with no
+resynthesis.  The mel projection and DCT are float32 matmuls; they stay
+in full float32 on the card because the entry points turn TF32 off
 (`dsr_tpu_torch.utils.device.resolve`).  The time-domain `mfcc` (the
 JAX package's `mfcc`: pre-emphasis, Hamming-windowed frames, an rfft, mel
-and DCT) feeds BASELINE config 1.  `deltas` and `splice` are later work
-(ROADMAP).
+and DCT) feeds BASELINE config 1.  `deltas` / `add_deltas` (regression
+over ±window frames with edge replication), `splice` (adjacent-frame
+stacking) and `spectral_subtraction` run where their input lies, as
+slices and elementwise ops.
 """
 
 from __future__ import annotations
@@ -78,3 +80,43 @@ def mfcc_from_subbands(
 def cmn(feats: torch.Tensor) -> torch.Tensor:
     """Per-utterance cepstral mean normalisation over the frame axis (-2)."""
     return feats - feats.mean(dim=-2, keepdim=True)
+
+
+def _edge_pad(feats: torch.Tensor, before: int, after: int) -> torch.Tensor:
+    """Repeat the first frame `before` times and the last `after` times (axis -2)."""
+    lead, F = feats.shape[:-2], feats.shape[-1]
+    return torch.cat([feats[..., :1, :].expand(*lead, before, F), feats,
+                      feats[..., -1:, :].expand(*lead, after, F)], dim=-2)
+
+
+def deltas(feats: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Regression deltas over ±window frames (edge replication), axis -2."""
+    denom = 2 * sum(d * d for d in range(1, window + 1))
+    T = feats.shape[-2]
+    padded = _edge_pad(feats, window, window)
+    out = torch.zeros_like(feats)
+    for d in range(1, window + 1):
+        out = out + d * (padded[..., window + d:window + d + T, :]
+                         - padded[..., window - d:window - d + T, :])
+    return out / denom
+
+
+def add_deltas(feats: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """[c, Δc, ΔΔc] stacking along the feature axis."""
+    d1 = deltas(feats, window)
+    d2 = deltas(d1, window)
+    return torch.cat([feats, d1, d2], dim=-1)
+
+
+def splice(feats: torch.Tensor, left: int = 3, right: int = 3) -> torch.Tensor:
+    """Adjacent-frame stacking: frame t becomes frames t-left .. t+right
+    side by side (edges replicated), (..., T, F) → (..., T, (left+right+1) F)."""
+    T = feats.shape[-2]
+    padded = _edge_pad(feats, left, right)
+    return torch.cat([padded[..., off:off + T, :] for off in range(left + right + 1)], dim=-1)
+
+
+def spectral_subtraction(P: torch.Tensor, noise_psd: torch.Tensor, alpha: float = 1.0,
+                         floor: float = 0.1) -> torch.Tensor:
+    """Power-domain spectral subtraction with flooring: max(P - α N, floor P)."""
+    return torch.maximum(P - alpha * noise_psd, floor * P)

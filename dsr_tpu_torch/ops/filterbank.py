@@ -2,14 +2,15 @@
 
 Counterpart of `dsr_tpu/ops/filterbank.py`, same conventions and layouts:
 (..., S) float32 signals, (..., T, M//2+1) complex64 subbands, prototypes
-from the shipped designs.  On a CUDA tensor `analysis` and `synthesis`
-launch the hand-written kernels of `ops/cuda/filterbank.py` for every
-config; on a CPU tensor they run the plain versions beside those kernels,
-which follow the JAX package's XLA paths.  `analysis_beamform` is the
-fused analysis + fixed-weight beamform of the serving path (the JAX
-package's `ops/pallas/filterbank.analysis_beamform`); `stage_for_beamform`
-and `analysis_beamform_staged` run it over a bank of signals staged once
-on the device, addressed by buffer index.
+from `utils.design.get_prototypes` (shipped or designed).  On a CUDA
+tensor `analysis` and `synthesis` launch the hand-written kernels of
+`ops/cuda/filterbank.py` for every config; on a CPU tensor they run the
+plain versions beside those kernels, which follow the JAX package's XLA
+paths.  `analysis_beamform` is the fused analysis + fixed-weight beamform
+of the serving path (the JAX package's
+`ops/pallas/filterbank.analysis_beamform`); `stage_for_beamform` and
+`analysis_beamform_staged` run it over a bank of signals staged once on
+the device, addressed by buffer index.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ def as_f32(h, device: torch.device) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=32)
 def prototype_tensors(cfg: FilterbankConfig, device: torch.device):
-    """The shipped (hf, gf) as float32 tensors on `device`, and the delay,
+    """The config's (hf, gf) as float32 tensors on `device`, and the delay,
     copied to the device once rather than on every call.  Shared between
     callers: do not write to them."""
     hf, gf, delay = get_prototypes(cfg)
