@@ -115,6 +115,27 @@ Phases, each of which fails the run loudly:
   14. AD, adaptation on config 1's phone task: MLLR, fMLLR, SAT (host loop
      and batched), MLLR regression classes and VTLN with the JAX tests'
      gates, each against the CPU plain path on the same inputs;
+  15. M, the models (slice 9, BASELINE config 5), each path counted: M1
+     `ConformerCtc` at its full width (dim 144, 4 layers, 4 heads) on
+     tests/test_neural.py's protocol (24 corpus utterances, time-domain
+     MFCC + CMN, Adam 3e-4 for 60 steps: the loss falls below 0.6 of the
+     first), card against the CPU plain path before training (logits and
+     loss 1e-4, gradients 1e-3 of each leaf), greedy and beam decodes
+     (beam 8, with and without the add-one bigram) of the trained logits,
+     beam ids and score equal to the CPU's; M2 the joint mask-MVDR +
+     Conformer-CTC model at its defaults on tools/exp_joint_ctc.py's
+     reverberant 6-mic scene (14 + 8 utterances through the analysis at M =
+     64 m = 2 r = 2): the CTC gradient reaches every mask-estimator leaf,
+     card against CPU in float32 and float64, a frozen warm start then
+     joint against frozen for 4 model seeds (held-out losses printed,
+     the frontend moves), a clipped step; M3 `StreamingCtcRecognizer`
+     with `StreamingConformerCtc` at its defaults on config 2's front end
+     (64-mic circular 0.20 m, M = 256 m = 4 r = 2, 8 s, MVDR) in 32 chunks
+     of 4,000 samples: streamed logits and words equal to the offline
+     chunk-causal pass, the chunk-local check, card against CPU, 32
+     analysis launches; M4 a `ConformerBlock` with a one-rank NCCL
+     `sp_group` against the dense block; each with its ms (CUDA events)
+     and device-busy share (profiler);
   P (run after phase 6, whose graph and logliks it reuses), BASELINE config
      4 on a one-rank NCCL group: P1 the graph-sharded decode
      (`make_sharded_decode` on a (1, 1, 1) mesh) of phase 6's 8 x 1000
@@ -1206,6 +1227,472 @@ def phase_frontend(ctx):
     phase_fe3(ctx, x)
     phase_fe4(ctx)
     print(f"FE launches: { {k: v - before[k] for k, v in ctx.counts.items() if v != before[k]} }")
+
+
+# ---- M, slice 9: the models (config 5) --------------------------------------
+JOINT_SOURCE = np.array([0.6, 1.5, 0.3])   # tools/exp_joint_ctc.py:26-34's scene
+# M2's float32 bounds against float64, of the largest magnitude: the AM's
+# gradients (the card reads 9.5e-4: its features carry the solve's
+# κ-amplified rounding; with TF32 on, 2.0e-2) and the masks, which do not
+# pass the solve (1.3e-6; with TF32 on, 1.3e-3)
+M2_AM_TOL = 1e-3
+M2_MASK_TOL = 1e-5
+JOINT_ROOM = dict(room_dim=np.array([5.0, 4.0, 3.0]), array_center=np.array([2.0, 1.0, 1.2]),
+                  reflect=0.7, max_order=2)
+
+
+def grad_check(model, ref, tol: float, floor: float = 1e-6) -> float:
+    """The largest |card − CPU| gradient of any parameter over max(tol ·
+    the CPU leaf's largest magnitude, floor): at most 1 passes.  The floor
+    covers the attention's k bias, whose true gradient is 0 (softmax over
+    keys ignores it) and whose computed one is rounding noise (~1e-8)."""
+    worst = 0.0
+    for (name, p), (_, q) in zip(model.named_parameters(), ref.named_parameters()):
+        err = float((p.grad.cpu() - q.grad).abs().max())
+        worst = max(worst, err / max(tol * float(q.grad.abs().max()), floor))
+    return worst
+
+
+def bigram(word_lists, word_id, V):
+    """tests/test_neural.py's add-one bigram over the training words:
+    (V+1, V+1) log-probabilities, row 0 the start."""
+    counts = np.ones((V + 1, V + 1))
+    for ws in word_lists:
+        prev = 0
+        for w in ws:
+            counts[prev, word_id[w]] += 1
+            prev = word_id[w]
+    return np.log(counts / counts.sum(axis=1, keepdims=True)).astype(np.float32)
+
+
+def phase_m1(ctx):
+    """M1, `ConformerCtc` at its full width (dim 144, 4 layers, 4 heads,
+    kernel 15; the corpus's 10 words) on tests/test_neural.py's protocol:
+    24 utterances of 1-3 words, time-domain MFCC + CMN, Adam 3e-4 for 60
+    steps; card against the CPU plain path before training; the decodes."""
+    from dsr_tpu_torch.models import conformer as cfm
+    from dsr_tpu_torch.ops import features as ft
+    from dsr_tpu_torch.utils import corpus
+
+    dev, smi = ctx.dev, ctx.smi
+    V = len(corpus.VOCAB)
+    word_id = {w: i + 1 for i, w in enumerate(corpus.VOCAB)}
+    utts = corpus.make_corpus(24, min_words=1, max_words=3, seed=3)
+    feats = [ft.cmn(ft.mfcc(torch.as_tensor(x.astype(np.float32), device=dev), SR))
+             for _, x in utts]
+    B, T_max, L_max = len(utts), max(len(f) for f in feats), max(len(ws) for ws, _ in utts)
+    X = torch.zeros((B, T_max, 13), device=dev)
+    xlen, Y, ylen = np.zeros(B, np.int64), np.zeros((B, L_max), np.int64), np.zeros(B, np.int64)
+    for i, ((ws, _), f) in enumerate(zip(utts, feats)):
+        X[i, :len(f)] = f
+        xlen[i], ylen[i] = len(f), len(ws)
+        Y[i, :len(ws)] = [word_id[w] for w in ws]
+
+    def build(device):
+        return cfm.ConformerCtc(V, device=device, generator=torch.Generator().manual_seed(3))
+
+    def loss_of(model, X_):
+        logits = model(X_)
+        return cfm.ctc_loss(logits, np.minimum(xlen // 4, logits.shape[1]), Y, ylen), logits
+
+    model, model_cpu = build(dev), build("cpu")
+    n_params = sum(p.numel() for p in model.parameters())
+    loss0, logits0 = ctx.counted("M1: ConformerCtc forward + backward (24 utterances)",
+                                 lambda: (lambda out: (out[0].backward(), out)[1])(
+                                     loss_of(model, X)), {})
+    loss0_c, logits0_c = loss_of(model_cpu, X.cpu())
+    loss0_c.backward()
+    e_logits = rel_err(logits0.detach().cpu(), logits0_c.detach())
+    e_loss = abs(loss0.item() - loss0_c.item()) / abs(loss0_c.item())
+    g_ratio = grad_check(model, model_cpu, 1e-3)
+    print(f"M1 ConformerCtc dim 144, 4 layers, 4 heads, {n_params} parameters; batch {B} x "
+          f"{T_max} frames -> {logits0.shape[1]} logits; card vs CPU plain path before training: "
+          f"logits {e_logits:.2e} (gate 1e-4), loss {e_loss:.2e} (gate 1e-4 relative), "
+          f"gradients at {g_ratio:.3f} of the bound (1e-3 of each leaf's max, 1e-6 absolute)")
+    check(e_logits <= 1e-4 and e_loss <= 1e-4 and g_ratio <= 1.0, "M1: card vs CPU")
+
+    opt = torch.optim.Adam(model.parameters(), lr=3e-4)
+
+    def step():
+        opt.zero_grad()
+        loss, _ = loss_of(model, X)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses, train_s = ctx.timed(lambda: ctx.counted(
+        "M1: 60 Adam steps", lambda: torch.stack([step() for _ in range(60)]).tolist(), {}))
+    print(f"M1 CTC loss {losses[0]:.3f} -> {losses[-1]:.3f} over 60 steps "
+          f"(gate < 0.6 x the first), {train_s:.2f} s on the host clock")
+    check(np.isfinite(losses).all() and losses[-1] < 0.6 * losses[0], "M1: the loss falls")
+
+    with torch.no_grad():
+        logits = model(X[:4])
+    lm = bigram([ws for ws, _ in utts], word_id, V)
+    parts = []
+    for i in range(4):
+        n = int(xlen[i] // 4)
+        ids_g = cfm.greedy_ctc_decode(logits[i], n)
+        for kw in (dict(), dict(lm_logprobs=lm, lm_weight=0.3)):
+            ids, sc = cfm.beam_ctc_decode(logits[i], beam=8, length=n, **kw)
+            ids_c, sc_c = cfm.beam_ctc_decode(logits[i].cpu(), beam=8, length=n, **kw)
+            check(len(ids) <= 8 and list(ids) == list(ids_c)
+                  and abs(sc - sc_c) <= 1e-4 * max(1.0, abs(sc_c)),
+                  f"M1: beam decode of utterance {i}, card vs CPU")
+        parts.append(f"{Y[i, :ylen[i]].tolist()} -> greedy {ids_g.tolist()}, beam+LM "
+                     f"{ids.tolist()} ({sc:.2f})")
+    print("M1 decodes of 4 training utterances (reference -> hypotheses; beam ids and score equal "
+          "the CPU plain path's on the same logits): " + "; ".join(parts))
+
+    fwd = torch.no_grad()(lambda: model(X))
+    fwd_ms, step_ms = cuda_ms(fwd, iters=10), cuda_ms(step, iters=5, warmup=1)
+    busy_f, busy_s = busy_share(fwd, fwd_ms), busy_share(step, step_ms)
+    print(f"M1 timing (CUDA events) [{smi}]: forward {fwd_ms:.3f} ms (device busy "
+          f"{busy_f:.3f}), train step {step_ms:.3f} ms (device busy {busy_s:.3f}); 60 steps "
+          f"{train_s / 60 * 1e3:.3f} ms each on the host clock")
+
+
+def joint_scene(dev, cfg, n_utts, seed, word_id):
+    """tools/exp_joint_ctc.py's `build_data` with the port's corpus and
+    room: 6-mic circular 0.10 m in a 5 x 4 x 3 m room (reflection 0.7,
+    order 2, 25 dB sensor SNR, 3 dB diffuse noise), one word an
+    utterance, zero-padded to a whole hop, through the card's analysis
+    → (X (B, 6, T, K), labels (B, 1), label lengths)."""
+    from dsr_tpu_torch.config import ArrayGeometry
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.utils import corpus, room
+
+    POS = np.asarray(ArrayGeometry.circular(6, 0.10).positions)
+    rng = np.random.default_rng(seed + 1)
+    xs, labels = [], []
+    for ws, x in corpus.make_corpus(n_utts, min_words=1, max_words=1, seed=seed):
+        xs.append(room.simulate(x, POS, JOINT_SOURCE, SR, snr_db=25.0, diffuse_snr_db=3.0,
+                                rng=rng, **JOINT_ROOM).astype(np.float32))
+        labels.append([word_id[w] for w in ws])
+    S = -(-max(x.shape[-1] for x in xs) // cfg.D) * cfg.D
+    xm = np.zeros((len(xs), 6, S), np.float32)
+    for i, x in enumerate(xs):
+        xm[i, :, :x.shape[-1]] = x
+    X = fb.analysis(torch.as_tensor(xm, device=dev), cfg)
+    return X, np.asarray(labels, np.int64), np.ones(len(xs), np.int64)
+
+
+def phase_m2(ctx):
+    """M2, config 5's joint model at its defaults (dim 64, 2 layers, 2
+    heads, mask hidden 64) on tests/test_joint_ctc.py's protocol at model
+    seed 0: the gradient reaches the mask estimator; card against the CPU
+    plain path in float64 and float32, and a TF32 step that the float32
+    bounds must reject; from a shared warm start of 250 frozen steps, 250
+    joint and 250 frozen steps, all finite, the frontend moved; a clipped
+    step.  The held-out margin (joint < frozen − 0.1, test_joint_ctc.py:89)
+    is printed, not gated: its sign depends on the seed in both packages."""
+    import copy
+
+    from dsr_tpu_torch.config import FilterbankConfig
+    from dsr_tpu_torch.models import conformer as cfm
+    from dsr_tpu_torch.models import joint as mj
+    from dsr_tpu_torch.models import neural_beamformer as nbf
+    from dsr_tpu_torch.utils import corpus
+
+    dev, smi = ctx.dev, ctx.smi
+    cfg = FilterbankConfig(M=64, m=2, r=2)
+    V = len(corpus.VOCAB)
+    word_id = {w: i + 1 for i, w in enumerate(corpus.VOCAB)}
+    steps = 250                                     # tests/test_joint_ctc.py's STEPS
+    t0 = time.perf_counter()
+    (Xtr, lab, lens), (Xev, lab_ev, lens_ev) = ctx.counted(
+        "M2: the config-5 scene through the analysis (14 + 8 utterances, M=64 m=2 r=2)",
+        lambda: (joint_scene(dev, cfg, 14, 0, word_id), joint_scene(dev, cfg, 8, 500, word_id)),
+        {"analysis": 2})
+    scene_s = time.perf_counter() - t0
+
+    def build(device, dtype=torch.float32):
+        return mj.JointBeamformerCtc(V, cfg.M, device=device,
+                                     generator=torch.Generator().manual_seed(0)).to(dtype)
+
+    def loss_of(model, X_):
+        logits = model(X_)
+        return cfm.ctc_loss(logits, np.full(X_.shape[0], logits.shape[1]), lab, lens)
+
+    def eval_loss(model):
+        with torch.no_grad():
+            logits = model(Xev)
+            return float(cfm.ctc_loss(logits, np.full(len(lens_ev), logits.shape[1]), lab_ev,
+                                      lens_ev))
+
+    def train(model, frozen):
+        step = mj.make_train_step(model, torch.optim.Adam(model.parameters(), lr=3e-3),
+                                  frozen_frontend=frozen)
+        return float(torch.stack([step(Xtr, lab, lens) for _ in range(steps)])[-1])
+
+    model0 = build(dev)
+    # the CTC gradient reaches every leaf of the mask estimator (test_joint_ctc.py:57-71)
+    logits = model0(Xtr[:2])
+    cfm.ctc_loss(logits, np.full(2, logits.shape[1]), lab[:2], lens[:2]).backward()
+    norms = {n: float(p.grad.norm()) for n, p in model0.frontend.named_parameters()}
+    model0.zero_grad(set_to_none=True)
+    print(f"M2 scene: train X {tuple(Xtr.shape)}, eval X {tuple(Xev.shape)} (simulated and "
+          f"analysed in {scene_s:.2f} s); CTC gradient norms of the mask estimator's leaves "
+          f"{min(norms.values()):.3e} .. {max(norms.values()):.3e} (gate finite, > 1e-6)")
+    check(all(np.isfinite(v) and v > 1e-6 for v in norms.values()),
+          f"M2: the CTC gradient reaches every frontend leaf ({norms})")
+
+    # card against the CPU plain path, one step's masks, loss and gradients
+    # from the same init.  float64 shows that both compute the same
+    # function; in float32 the solve amplifies rounding by the loaded noise
+    # PSD's condition number κ (~1e4 in the lowest bins here) on either
+    # device.  The masks do not pass the solve: they show a conv fault alone
+    def one_step(device, dtype, tf32=False):
+        m = build(device, dtype)    # resolve() turns TF32 off: set it after
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            X_ = Xtr.to(device=device, dtype=torch.complex64 if dtype == torch.float32
+                        else torch.complex128)
+            loss = loss_of(m, X_)
+            loss.backward()
+            with torch.no_grad():
+                masks = torch.stack(m.frontend.mask(torch.log(X_.abs().mean(-3) + 1e-6)))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        return (loss.item(), masks.cpu().double(),
+                {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()})
+
+    runs = {(d, dt, tf32): one_step(torch.device(d), dt, tf32)
+            for d, dt, tf32 in ((dev.type, torch.float32, False), ("cpu", torch.float32, False),
+                                (dev.type, torch.float64, False), ("cpu", torch.float64, False),
+                                (dev.type, torch.float32, True))}
+    with torch.no_grad():
+        Xc = Xtr.cpu()
+        _, mn = build("cpu").frontend.mask(torch.log(Xc.abs().mean(-3) + 1e-6))
+        kappa = float(nbf.loaded_condition(nbf.masked_psd(Xc, mn)).max())
+
+    def gap(a, b):
+        """The largest |a − b| of any leaf over the leaf's largest |b|, by
+        subtree (the k biases' zero gradient left out), and of the masks."""
+        return {**{sub: max(float((a[2][n] - b[2][n]).abs().max() / b[2][n].abs().max())
+                            for n in b[2] if n.startswith(sub) and not n.endswith("att.k.bias"))
+                   for sub in ("am.", "frontend.")},
+                "masks": rel_err(a[1], b[1])}
+
+    ref64 = runs["cpu", torch.float64, False]
+    l32, l32c = runs[dev.type, torch.float32, False][0], runs["cpu", torch.float32, False][0]
+    e_loss = abs(l32 - l32c) / abs(l32c)
+    e64 = gap(runs[dev.type, torch.float64, False], ref64)
+    card32 = gap(runs[dev.type, torch.float32, False], ref64)
+    cpu32 = gap(runs["cpu", torch.float32, False], ref64)
+    tf32_ = gap(runs[dev.type, torch.float32, True], ref64)
+    tol = {"am.": M2_AM_TOL, "frontend.": max(1e-3, 3e-7 * kappa), "masks": M2_MASK_TOL}
+    fmt = lambda g: ", ".join(f"{g[k]:.2e}" for k in tol)  # noqa: E731
+    print(f"M2 card vs CPU plain path, one step from the same init: float32 loss {l32:.5f} / "
+          f"{l32c:.5f} ({e_loss:.2e}, gate 1e-4 relative); float64 (AM gradients, mask "
+          f"estimator gradients, masks) card vs CPU {fmt(e64)} (gate 1e-9); float32 against "
+          f"float64: card {fmt(card32)}, CPU {fmt(cpu32)}, the card with TF32 on {fmt(tf32_)} "
+          f"(gates {fmt(tol)}: AM {M2_AM_TOL:g}, mask estimator max(1e-3, 3e-7 x kappa), masks "
+          f"{M2_MASK_TOL:g}; largest kappa of a loaded noise PSD {kappa:.3e})")
+    check(e_loss <= 1e-4 and max(e64.values()) <= 1e-9 and all(card32[k] <= tol[k] for k in tol),
+          "M2: card vs CPU")
+    check(all(tf32_[k] > tol[k] for k in tol), "M2: each float32 gate rejects a TF32 step")
+    del runs
+
+    # a shared warm start with the frontend frozen, then joint against frozen
+    def protocol():
+        front0 = {n: p.detach().clone() for n, p in model0.frontend.named_parameters()}
+        l_warm = train(model0, True)
+        joint, frozen = copy.deepcopy(model0), copy.deepcopy(model0)
+        l_joint, l_froz = train(joint, False), train(frozen, True)
+        moved = max(float((p.detach() - front0[n]).abs().max())
+                    for n, p in joint.frontend.named_parameters())
+        return l_warm, l_joint, l_froz, eval_loss(joint), eval_loss(frozen), moved
+
+    out, train_s = ctx.timed(lambda: ctx.counted(
+        f"M2: {3 * steps} train steps (warm start, joint, frozen)", protocol, {}))
+    print(f"M2 {steps} frozen warm-start steps, then {steps} joint / {steps} frozen: train "
+          f"losses {out[0]:.3f}, {out[1]:.3f}, {out[2]:.3f}; held-out CTC loss joint {out[3]:.3f} "
+          f"vs frozen {out[4]:.3f} (joint beats frozen by > 0.1: {out[3] < out[4] - 0.1}, not "
+          f"gated); the frontend moved {out[5]:.2e} (gate > 1e-4); {3 * steps} steps in "
+          f"{train_s:.2f} s on the host clock")
+    check(bool(np.isfinite(out[:5]).all()), "M2: every training run stays finite")
+    check(out[5] > 1e-4, "M2: the frontend moved")
+
+    # one clipped step as __graft_entry__.py:321 takes it
+    clipped = build(dev)
+    l_clip = float(mj.make_train_step(clipped, torch.optim.Adam(clipped.parameters(), lr=1e-3),
+                                      clip_norm=1.0)(Xtr, lab, lens))
+    check(np.isfinite(l_clip) and all(bool(torch.isfinite(p).all())
+                                      for p in clipped.parameters()), "M2: a clipped step")
+    step = mj.make_train_step(clipped, torch.optim.Adam(clipped.parameters(), lr=3e-3))
+    fn = lambda: step(Xtr, lab, lens)  # noqa: E731
+    step_ms = cuda_ms(fn, iters=5, warmup=1)
+    print(f"M2 clip_norm=1.0 step: loss {l_clip:.4f} (finite); joint train step (14 utterances) "
+          f"{step_ms:.3f} ms by CUDA events, device busy {busy_share(fn, step_ms):.3f}, "
+          f"{train_s / (3 * steps) * 1e3:.3f} ms each on the host clock [{smi}]")
+
+
+class _Recorder:
+    """A streaming model that keeps the rows each `step` and `finish` emit."""
+
+    def __init__(self, model):
+        self.model, self.rows = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def step(self, raw, state):
+        logits, n, new = self.model.step(raw, state)
+        self.rows.append(logits[:n])
+        return logits, n, new
+
+    def finish(self, state):
+        logits, n = self.model.finish(state)
+        self.rows.append(logits[:n])
+        return logits, n
+
+
+def phase_m3(ctx):
+    """M3, the streaming CTC path at config 2's front end: 64-mic circular
+    0.20 m, M = 256 m = 4 r = 2, 8 s of corpus speech at SOURCE in free
+    field (20 dB), MVDR; `StreamingCtcRecognizer` with `StreamingConformerCtc`
+    at its defaults (dim 144, 4 layers, 4 heads, chunk 8, left 2, 13
+    cepstra) in chunks of 4,000 samples."""
+    from dsr_tpu_torch.config import ArrayGeometry, BeamformerConfig
+    from dsr_tpu_torch.models import streaming_conformer as scm
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.pipeline import DsrPipeline, StreamingCtcRecognizer
+    from dsr_tpu_torch.utils import corpus, room
+
+    dev, cfg, smi = ctx.dev, ctx.cfg, ctx.smi
+    S, B = int(8 * SR), 4000
+    geo = ArrayGeometry.circular(64, 0.20)
+    speech = np.concatenate([x for _, x in corpus.make_corpus(8, min_words=2, max_words=4,
+                                                               seed=31)])
+    speech = np.pad(speech, (0, max(S - len(speech), 0)))[:S]
+    rng = np.random.default_rng(32)
+    x = room.simulate(speech, np.asarray(geo.positions), SOURCE, SR, snr_db=20.0,
+                      rng=rng).astype(np.float32)
+    chunks = [x[:, i:i + B] for i in range(0, S, B)]
+
+    def system(device):
+        pipe = DsrPipeline(fb=cfg, geometry=geo, beamformer=BeamformerConfig(kind="mvdr"),
+                           device=device)
+        model = scm.StreamingConformerCtc(len(corpus.VOCAB), device=device,
+                                          generator=torch.Generator().manual_seed(8))
+        return pipe, model
+
+    pipe, model = system(dev)
+    # the offline pass: a fixed cepstral normaliser and the reference features
+    Y = ctx.counted("M3: offline analysis + MVDR (64 ch x 8 s)", lambda: pipe.beamform_subbands(
+        fb.analysis(torch.as_tensor(x, device=dev), cfg), SOURCE)[0], {"analysis": 1})
+    f_off = pipe.mfcc(Y)
+    mean, scale = f_off.mean(0), f_off.std(0)
+    mean_np, scale_np = mean.cpu().numpy(), scale.cpu().numpy()
+
+    def recognize(pipe_, model_):
+        rec = StreamingCtcRecognizer(pipe_, _Recorder(model_), SOURCE, cep_mean=mean_np,
+                                     cep_scale=scale_np)
+        inc = [w for out in rec.run(iter(chunks)) for w in out]
+        words = rec.finish()
+        check(words[:len(inc)] == inc, "M3: finish only appends")
+        return words, torch.cat(rec.model.rows)
+
+    recognize(pipe, model)                                              # warm-up
+    (words, rows), rec_s = ctx.timed(lambda: ctx.counted(
+        f"M3: StreamingCtcRecognizer (64 ch x 8 s, {len(chunks)} chunks)",
+        lambda: recognize(pipe, model), {"analysis": len(chunks)}))
+    C4 = 4 * model.chunk
+    feats = (f_off - mean) / scale
+    n_full = feats.shape[0] // C4 * C4
+    with torch.no_grad():
+        off = model(feats[:n_full])
+    greedy_off = scm.greedy_ctc_stream([off])
+    ok_rows = rows.shape == off.shape and torch.allclose(rows, off, atol=2e-4, rtol=1e-4)
+    err_rows = float((rows - off).abs().max()) if rows.shape == off.shape else float("nan")
+    print(f"M3: {len(chunks)} chunks -> {f_off.shape[0]} feature frames, {rows.shape[0]} logit "
+          f"rows streamed ({n_full} frames offline -> {off.shape[0]}); streamed vs offline "
+          f"chunk-causal max |diff| {err_rows:.2e} (gate atol 2e-4, rtol 1e-4); words "
+          f"{len(words)} streamed, equal to the offline greedy words {words == greedy_off.tolist()}")
+    check(ok_rows and words == greedy_off.tolist() and len(words) > 0,
+          "M3: streamed against the offline chunk-causal pass")
+
+    # chunk-local: audio before the visible context does not reach the last
+    # chunk (4 layers x (left 16 + conv 14) = 120 frames back from frame 176)
+    N = 24
+    rf = torch.as_tensor(np.random.default_rng(33).standard_normal((C4 * N, 13)).astype(
+        np.float32), device=dev)
+    rf2 = rf.clone()
+    rf2[:C4] += 10.0
+
+    @torch.no_grad()
+    def last(f):
+        state, out = model.init_state(), None
+        for n in range(N):
+            out, _, state = model.step(f[C4 * n:C4 * (n + 1)], state)
+        return out
+
+    d_local = float((last(rf) - last(rf2)).abs().max())
+    check(d_local <= 1e-5, f"M3: the last chunk depends on the first ({d_local:.2e})")
+
+    # card against the CPU plain path
+    words_c, rows_c = recognize(*system("cpu"))
+    e_rows = rel_err(rows.cpu(), rows_c) if rows_c.shape == rows.shape else float("inf")
+    print(f"M3 chunk-local: first raw chunk +10, last chunk's logits max |diff| {d_local:.2e} "
+          f"(gate 1e-5); card vs CPU plain path: words equal {words == words_c}, streamed logits "
+          f"{e_rows:.2e} (gate 1e-4)")
+    check(words == words_c and e_rows <= 1e-4, "M3: card vs CPU")
+
+    state = model.init_state()
+    with torch.no_grad():
+        for n in range(3):
+            _, _, state = model.step(feats[C4 * n:C4 * (n + 1)], state)
+    raw = feats[C4 * 3:C4 * 4]
+    fn = torch.no_grad()(lambda: model.step(raw, state))
+    ms = cuda_ms(fn, iters=20)
+    print(f"M3 timing [{smi}]: model step (32 feature frames = 0.256 s of audio) {ms:.3f} ms by "
+          f"CUDA events, device busy {busy_share(fn, ms):.3f}; the recognizer {rec_s:.3f} s "
+          f"on the host clock for 8 s = {8.0 / rec_s:.1f} audio-s/s")
+
+
+def phase_m4(ctx):
+    """M4, the sequence-parallel Conformer block on a one-rank group at the
+    model's width (dim 144, 4 heads; B 2, T 512) against the dense block."""
+    import torch.distributed as dist
+
+    from dsr_tpu_torch.config import MeshConfig
+    from dsr_tpu_torch.models.conformer import ConformerBlock
+    from dsr_tpu_torch.parallel import make_mesh
+    from dsr_tpu_torch.parallel.mesh import initialize_distributed
+
+    dev, smi = ctx.dev, ctx.smi
+    x = torch.as_tensor(np.random.default_rng(34).standard_normal((2, 512, 144)).astype(
+        np.float32), device=dev)
+    with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_store_") as store:
+        initialize_distributed(f"file://{store}/rendezvous", 1, 0, heartbeat_timeout_s=600,
+                               device=dev.type, always=True)
+        try:
+            group = make_mesh(MeshConfig(), dev.type).get_group("subband")
+            blocks = [ConformerBlock(144, 4, sp_group=g, device=dev,
+                                     generator=torch.Generator().manual_seed(9))
+                      for g in (group, None)]
+            fns = [torch.no_grad()(lambda b=b: b(x)) for b in blocks]
+            y_sp, y = (ctx.counted(f"M4: ConformerBlock {name}", fn, {})
+                       for name, fn in zip(("sequence parallel", "dense"), fns))
+            d = float((y_sp - y).abs().max())
+            ms = [cuda_ms(fn, iters=10) for fn in fns]
+            print(f"M4: ConformerBlock (dim 144, 4 heads, 2 x 512 frames) with a one-rank "
+                  f"{dist.get_backend()} sp_group (ring attention, conv halo) vs the dense block: "
+                  f"max |diff| {d:.2e} (gate 2e-4); {ms[0]:.3f} / {ms[1]:.3f} ms [{smi}]")
+            check(d <= 2e-4, "M4: the sequence-parallel block differs from the dense block")
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_models(ctx):
+    """M, slice 9: M1-M4; prints the launches the phase added."""
+    before = dict(ctx.counts)
+    phase_m1(ctx)
+    phase_m2(ctx)
+    phase_m3(ctx)
+    phase_m4(ctx)
+    print(f"M launches: { {k: v - before[k] for k, v in ctx.counts.items() if v != before[k]} }")
 
 
 def main() -> int:
@@ -2693,6 +3180,9 @@ def main() -> int:
     phase_tri_decode(ctx)
     phase_tri_train(ctx)
     phase_adapt(ctx)
+
+    # ---- 15. M: the models, config 5 (slice 9) ------------------------------
+    phase_models(ctx)
 
     print(f"main path launches, all paths: {counts}")
 

@@ -73,6 +73,7 @@ def mfcc_from_subbands(
     W, C = _mel_dct(num_mel, num_cepstra, M // 2 + 1, sample_rate / M, fmin, fmax, vtln_warp,
                     Y.device)
     P = Y.abs() ** 2
+    W, C = W.to(P.dtype), C.to(P.dtype)       # float32 matrices; float64 for complex128 Y
     mel_e = torch.clamp_min(P @ W.T, 1e-10)
     return torch.log(mel_e) @ C.T
 

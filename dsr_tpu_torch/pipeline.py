@@ -13,8 +13,10 @@ another (`device="cpu"` runs the plain path).
 
 Streaming: `process_streaming` (enhanced waveform chunks),
 `process_streaming_subbands` (mature beamformed subband frames, equal to
-offline `process`'s for the fixed beamformers) and `StreamingRecognizer`
-(audio chunks in, words out through the top-K decoder's chunked decode).
+offline `process`'s for the fixed beamformers), `StreamingRecognizer`
+(audio chunks in, words out through the top-K decoder's chunked decode)
+and `StreamingCtcRecognizer` (audio chunks in, CTC labels out through the
+chunk-causal `StreamingConformerCtc`).
 The GSC's active weights are carried from chunk to chunk; the frames
 re-analysed over each chunk's overlap re-adapt, so a streamed GSC output
 follows the JAX package's streamed output, not the offline one.
@@ -105,6 +107,14 @@ class DsrPipeline:
             Y = pf.apply_postfilter(Y, pf.mccowan_weights(A, self._gamma))
         return Y, state
 
+    def mfcc(self, Y: torch.Tensor) -> torch.Tensor:
+        """Subband MFCC of beamformed subbands (..., T, K) with the front
+        end's settings → (..., T, num_cepstra)."""
+        fe = self.frontend
+        return ft.mfcc_from_subbands(Y, self.fb.M, fe.sample_rate, num_mel=fe.num_mel,
+                                     num_cepstra=fe.num_cepstra, fmin=fe.fmin, fmax=fe.fmax,
+                                     vtln_warp=fe.vtln_warp)
+
     def process(self, x_multi, source_pos: np.ndarray):
         """(N, S) waveforms → (enhanced waveform (S,), features (T', D))."""
         x = torch.as_tensor(x_multi, dtype=torch.float32, device=self.device)
@@ -113,12 +123,7 @@ class DsrPipeline:
             A = der.wpe(A)
         Y, _ = self.beamform_subbands(A, source_pos)
         y = fb.synthesis(Y, self.fb, x.shape[-1])
-        feats = ft.mfcc_from_subbands(
-            Y, self.fb.M, self.frontend.sample_rate,
-            num_mel=self.frontend.num_mel, num_cepstra=self.frontend.num_cepstra,
-            fmin=self.frontend.fmin, fmax=self.frontend.fmax,
-            vtln_warp=self.frontend.vtln_warp,
-        )
+        feats = self.mfcc(Y)
         if self.frontend.cmn:
             feats = ft.cmn(feats)
         return y, feats
@@ -227,12 +232,7 @@ class StreamingRecognizer:
         self._toks: list[tuple[torch.Tensor, torch.Tensor]] = []
 
     def _feats(self, Y: torch.Tensor) -> torch.Tensor:
-        fe = self.pipe.frontend
-        f = ft.mfcc_from_subbands(
-            Y, self.pipe.fb.M, fe.sample_rate, num_mel=fe.num_mel,
-            num_cepstra=fe.num_cepstra, fmin=fe.fmin, fmax=fe.fmax,
-            vtln_warp=fe.vtln_warp,
-        )
+        f = self.pipe.mfcc(Y)
         return f if self.cep_mean is None else f - self.cep_mean
 
     def run(self, chunks):
@@ -252,3 +252,73 @@ class StreamingRecognizer:
         tok_arcs = torch.cat([a for _, a in self._toks], dim=0)
         olabs, score = tk.traceback(self.graph, tok_states, tok_arcs, self.carry)
         return [int(w) for w in olabs if w], float(score)
+
+
+class StreamingCtcRecognizer:
+    """CTC-path streaming recognition: multichannel audio chunks →
+    beamformed subbands → features → `StreamingConformerCtc` steps →
+    incremental greedy labels.
+
+    The carried state is the front end's sample buffer, the model's
+    `StreamState` and the greedy decoder's last label; features wait in a
+    buffer until a whole model step (4·chunk frames) is there.  The emitted
+    rows are the offline chunk-causal pass's, so the labels equal the
+    greedy decode of `model(all features)` up to the last flushed frame.
+    `finish()` flushes the model's one chunk of latency; the features
+    after the last whole model chunk (< 4·chunk frames) are dropped, as
+    the offline pass drops them on chunk-aligned input.
+
+    `cep_mean` / `cep_scale`: fixed cepstral normalisation (subtracted, then
+    divided; utterance CMN is not causal).  The model lies on the
+    pipeline's device.
+    """
+
+    def __init__(self, pipe: DsrPipeline, model, source_pos: np.ndarray,
+                 cep_mean: np.ndarray | None = None, cep_scale: np.ndarray | None = None):
+        self.pipe = pipe
+        self.model = model
+        self.source_pos = np.asarray(source_pos)
+        fixed = lambda a: (None if a is None else  # noqa: E731
+                           torch.as_tensor(np.asarray(a, np.float32), device=pipe.device))
+        self.cep_mean, self.cep_scale = fixed(cep_mean), fixed(cep_scale)
+        self.state = model.init_state()
+        self._fbuf = torch.zeros((0, model.feat_dim), device=pipe.device)
+        self._prev_label = -1
+        self.words: list[int] = []
+
+    def _feats(self, Y: torch.Tensor) -> torch.Tensor:
+        f = self.pipe.mfcc(Y)
+        if self.cep_mean is not None:
+            f = f - self.cep_mean
+        if self.cep_scale is not None:
+            f = f / self.cep_scale
+        return f
+
+    def _emit(self, logits: torch.Tensor, n_new: int) -> list[int]:
+        out = []
+        for i in logits[:n_new].argmax(dim=-1).tolist():
+            if i != self._prev_label and i != 0:
+                out.append(i)
+            self._prev_label = i
+        self.words.extend(out)
+        return out
+
+    @torch.no_grad()
+    def run(self, chunks):
+        """Consume an iterable of (N, block) audio chunks; yields the labels
+        each model step emits (steps that emit none yield nothing)."""
+        C4 = 4 * self.model.chunk
+        for Y in self.pipe.process_streaming_subbands(chunks, self.source_pos):
+            self._fbuf = torch.cat([self._fbuf, self._feats(Y)])
+            while self._fbuf.shape[0] >= C4:
+                raw, self._fbuf = self._fbuf[:C4], self._fbuf[C4:]
+                logits, n_new, self.state = self.model.step(raw, self.state)
+                out = self._emit(logits, n_new)
+                if out:
+                    yield out
+
+    @torch.no_grad()
+    def finish(self) -> list[int]:
+        """Flush the model's buffered chunk; returns every label emitted."""
+        self._emit(*self.model.finish(self.state))
+        return self.words

@@ -11,7 +11,10 @@ def resolve(device=None) -> torch.device:
     Raises when CUDA is asked for (or implied) and no card is present: the
     port never falls back to the CPU by itself.  On the card it turns TF32
     off for float32 matmuls (PyTorch's default, set here so a changed
-    default cannot make card results drift from the plain path's).
+    default cannot make card results drift from the plain path's) and for
+    cuDNN's convolutions (on by default: the models' convolutions would
+    otherwise round their inputs to TF32 and miss the CPU plain path by
+    ~1e-3).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -21,4 +24,5 @@ def resolve(device=None) -> torch.device:
                 "pass device='cpu' to run the plain PyTorch path"
             )
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -14,7 +14,10 @@ mode "run" (4 ranks, one spawn for every case):
   - `psum_accum` of each rank's Baum-Welch E-step over a 4-rank data group;
   - `ring_attention`, `ulysses_attention` (bias and ragged key mask) and
     `exchange_halo` over the subband axis of a (subband 4) mesh, and
-    `pipeline_apply` over a 4-rank stage mesh;
+    `pipeline_apply` over a 4-rank stage mesh; a `ConformerBlock` with
+    `sp_group` over the subband group, and a 4-stage `pipeline_apply` of
+    `ConformerBlock`s (`torch.func.functional_call` on each stage's
+    weights), the weights converted from flax by the test;
   - `local_block` / `gather_block` of every spec of the sharding table on
     two meshes, and a mesh over part of the world;
   and writes outdir/rank<r>.npz.
@@ -54,6 +57,7 @@ def run(rank, inp, out):
     from dsr_tpu_torch.asr.am.gmm import GmmParams
     from dsr_tpu_torch.asr.fsm.packed import PackedGraph
     from dsr_tpu_torch.asr.train import ml, trainer
+    from dsr_tpu_torch.models.conformer import ConformerBlock
     from dsr_tpu_torch.parallel import longctx
     from dsr_tpu_torch.parallel.decoder import make_sharded_decode
     from dsr_tpu_torch.parallel.pipeline_parallel import pipeline_apply
@@ -100,6 +104,19 @@ def run(rank, inp, out):
     stages = DeviceMesh("cpu", torch.arange(4), mesh_dim_names=("stage",))
     res["pipe"] = pipeline_apply(stages, "stage", _layer, {"W": t("pW"), "b": t("pb")},
                                  t("pxs")).numpy()
+    # a Conformer block with its time split over the group (16 frames a
+    # rank), and a 4-stage pipeline of blocks, one block's weights a stage
+    weights = lambda prefix: {k[len(prefix):]: t(k) for k in inp.files  # noqa: E731
+                              if k.startswith(prefix)}
+    blk = ConformerBlock(16, heads=4, sp_group=group, device="cpu")
+    blk.load_state_dict(weights("cb_"), strict=True)
+    stage_blk = ConformerBlock(16, heads=2, device="cpu")
+    with torch.no_grad():
+        res["cb_sp"] = sharding.gather_block(blk(sharding.local_block(t("cbx"), sp, seq)), sp,
+                                             seq).numpy()
+        res["cb_pipe"] = pipeline_apply(
+            stages, "stage", lambda p, x: torch.func.functional_call(stage_blk, p, (x,)),
+            weights("cbp_"), t("cbxs")).numpy()
 
     # ---- blocks of every spec, on two meshes and on part of the world
     x = t("blocks")

@@ -475,3 +475,41 @@ def phone_hclg_system():
              if all(w in task.vocab for w in ws)] or [utts[0]]
     lls = [gmm.loglik(params, torch.as_tensor(feats_of(x))).numpy() for _, x in evals]
     return task, graph, lls
+
+
+# ---------------------------------------------------------------- the models
+
+def randomized(params, seed):
+    """flax parameters with every relative-position table, LayerNorm scale
+    and bias drawn at random (flax initialises them to 0 or 1, so each
+    would otherwise check nothing); kernels are kept."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+
+    def draw(path, a):
+        name = str(getattr(path[-1], "key", path[-1]))
+        if name == "rel_bias":
+            return jnp.asarray(0.3 * rng.standard_normal(a.shape), jnp.float32)
+        if name == "scale":
+            return jnp.asarray(1.0 + 0.2 * rng.standard_normal(a.shape), jnp.float32)
+        if name == "bias":
+            return jnp.asarray(0.1 * rng.standard_normal(a.shape), jnp.float32)
+        return a
+
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
+def grads_match(model, ref: dict, tol: float = 1e-3, floor: float = 1e-6) -> None:
+    """Every parameter's `.grad` against `ref` (the JAX gradients in the
+    port's layout): within `tol` of the reference leaf's largest magnitude,
+    or `floor` absolute.  The floor covers the attention's k bias, whose
+    true gradient is 0 (softmax over keys ignores it) and whose computed
+    one is float32 rounding noise of ~1e-8 in either package."""
+    params = dict(model.named_parameters())
+    assert set(params) == set(ref)
+    for name, p in params.items():
+        r = np.asarray(ref[name])
+        err = float(np.max(np.abs(p.grad.numpy() - r)))
+        assert err <= max(tol * float(np.max(np.abs(r))), floor), (name, err)

@@ -1,6 +1,7 @@
 """The port's `entry` forward against `__graft_entry__`, and the port's
 device and import rules: the card by default with no silent fall back to
-the CPU, and no import of `jax`, `dsr_tpu`, `golden`, `flax` or `scipy`.
+the CPU, and no import of `jax`, `dsr_tpu`, `golden`, `flax`, `optax` or
+`scipy`.
 
 Tolerance: 1e-4 of the largest magnitude of the reference for the GMM
 scores (the MVDR solve is ill-conditioned at the low bins, see
@@ -20,6 +21,9 @@ import torch
 import __graft_entry__
 from _torch_parity import rel
 from dsr_tpu_torch.entry import entry
+from dsr_tpu_torch.models.conformer import ConformerCtc
+from dsr_tpu_torch.models.joint import JointBeamformerCtc
+from dsr_tpu_torch.models.streaming_conformer import StreamingConformerCtc
 from dsr_tpu_torch.pipeline import DsrPipeline
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -42,6 +46,10 @@ def test_default_device_is_the_card_and_never_falls_back():
         DsrPipeline()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+    for model in (lambda: ConformerCtc(7), lambda: StreamingConformerCtc(7),
+                  lambda: JointBeamformerCtc(7, 64)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model()
     assert DsrPipeline(device="cpu").device == torch.device("cpu")
 
 
@@ -56,13 +64,14 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 def _foreign(name: str) -> bool:
-    return name.startswith("jax") or name.split(".")[0] in ("dsr_tpu", "golden", "flax", "scipy")
+    return name.startswith("jax") or name.split(".")[0] in ("dsr_tpu", "golden", "flax", "optax",
+                                                            "scipy")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, loaded in a fresh interpreter, pulls in no
-    jax*, dsr_tpu*, golden*, flax* or scipy* module (scipy is a test-only
-    dependency); and no import statement anywhere in
+    jax*, dsr_tpu*, golden*, flax*, optax* or scipy* module (scipy is a
+    test-only dependency); and no import statement anywhere in
     the port or chip_smoke.py (function bodies included) names one."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -72,11 +81,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "spec = importlib.util.spec_from_file_location('chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m.startswith('jax')"
-        " or m.split('.')[0] in ('dsr_tpu', 'golden', 'flax', 'scipy')]\n"
+        " or m.split('.')[0] in ('dsr_tpu', 'golden', 'flax', 'optax', 'scipy')]\n"
         "new = {'dsr_tpu_torch.asr.' + m for m in ('tree', 'triphone', 'tritrain', 'adapt.mllr',"
         " 'adapt.fmllr', 'adapt.sat', 'adapt.vtln')} | {'dsr_tpu_torch.utils.room',"
         " 'dsr_tpu_torch.utils.objective'} | {'dsr_tpu_torch.ops.' + m for m in ('lpc', 'aec',"
-        " 'sad', 'convolution', 'cmfb', 'prfft', 'modal')}\n"
+        " 'sad', 'convolution', 'cmfb', 'prfft', 'modal')} | {'dsr_tpu_torch.models.' + m for m"
+        " in ('conformer', 'streaming_conformer', 'neural_beamformer', 'joint')}\n"
         "assert new <= set(mods), new - set(mods)\n"
         "print(len(mods), sorted(bad))\n"
     )

@@ -14,6 +14,11 @@ Tolerances:
   reduction order over the ranks);
 - ring, Ulysses, halo and pipeline: 1e-5 of the output's largest
   magnitude (the same float32 products in another order);
+- the Conformer block with `sp_group` (ring attention, conv halo) against
+  the JAX dense block: 2e-4 absolute, and the 4-stage Conformer pipeline
+  (`torch.func.functional_call` of one block on each stage's weights)
+  against the JAX stack applied stage by stage: 3e-5 absolute, the JAX
+  package's own gates (tests/test_longctx.py, test_pipeline_parallel.py);
 - blocks: exact.
 The dead-rank drill is a second spawn of 2 ranks.
 """
@@ -31,7 +36,7 @@ import pytest
 import torch
 from jax.sharding import Mesh, PartitionSpec as P
 
-from _torch_parity import SR, phone_hclg_system, rel
+from _torch_parity import SR, phone_hclg_system, randomized, rel
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_parallel_worker.py")
 MAXD = 16
@@ -110,7 +115,30 @@ def _inputs(graph, lls):
         blocks=rng.standard_normal((6, 3, 5, 7)).astype(np.float32))
 
 
-def _jax_refs(graph, inp):
+def _conformer_case():
+    """tests/test_longctx.py's sequence-parallel block (B 2, T 64, D 16, 4
+    heads) and tests/test_pipeline_parallel.py's Conformer stack (D 16, 2
+    heads), here 4 stages over 3 microbatches of (2, 12, 16): the flax
+    parameters (relative-position tables, LayerNorm scales and biases
+    random) and the inputs the ranks read, the weights in the port's
+    layout (`convert.conformer_block`; the stages stacked on a leading axis)."""
+    from dsr_tpu.models.conformer import ConformerBlock as JBlock
+    from dsr_tpu_torch import convert
+
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 64, 16)).astype(np.float32)
+    xs = rng.standard_normal((3, 2, 12, 16)).astype(np.float32)
+    sp = randomized(JBlock(16, heads=4).init(jax.random.PRNGKey(1), jnp.asarray(x)), 7)
+    stages = [randomized(JBlock(16, heads=2).init(jax.random.PRNGKey(2 + s), jnp.asarray(xs[0])),
+                         8 + s) for s in range(4)]
+    sds = [convert.conformer_block(p) for p in stages]
+    inp = {"cbx": x, "cbxs": xs,
+           **{f"cb_{k}": v.numpy() for k, v in convert.conformer_block(sp).items()},
+           **{f"cbp_{k}": np.stack([sd[k].numpy() for sd in sds]) for k in sds[0]}}
+    return (sp, stages), inp
+
+
+def _jax_refs(graph, inp, blocks):
     """The JAX package's functions on the same inputs."""
     from jax import shard_map
 
@@ -167,6 +195,16 @@ def _jax_refs(graph, inp):
         refs["pipe"] = np.asarray(pipeline_apply(
             stages, "stage", lambda p, x: x + jnp.tanh(x @ p["W"] + p["b"]),
             {"W": jnp.asarray(inp["pW"]), "b": jnp.asarray(inp["pb"])}, jnp.asarray(inp["pxs"])))
+
+    # the dense Conformer block, and the stack applied stage by stage
+    from dsr_tpu.models.conformer import ConformerBlock as JBlock
+
+    sp_params, stage_params = blocks
+    refs["cb_sp"] = np.asarray(JBlock(16, heads=4).apply(sp_params, jnp.asarray(inp["cbx"])))
+    ys = jnp.asarray(inp["cbxs"])
+    for p in stage_params:
+        ys = jax.vmap(lambda x, p=p: JBlock(16, heads=2).apply(p, x))(ys)
+    refs["cb_pipe"] = np.asarray(ys)
     return refs
 
 
@@ -174,11 +212,12 @@ def _jax_refs(graph, inp):
 def spawned(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("parallel"))
     task, graph, lls = phone_hclg_system()
-    inp = _inputs(graph, lls)
+    blocks, cb_inp = _conformer_case()
+    inp = {**_inputs(graph, lls), **cb_inp}
     np.savez(os.path.join(tmp, "inputs.npz"), **inp)
     procs = _spawn(4, tmp)
     try:
-        refs = _jax_refs(graph, inp)
+        refs = _jax_refs(graph, inp, blocks)
     finally:
         outs = _wait(procs, timeout=240)
     for r, (p, (so, se)) in enumerate(zip(procs, outs)):
@@ -233,6 +272,9 @@ def test_sequence_and_pipeline_parallel_match_jax(spawned):
     for r in ranks:
         for name in ("ring", "ulysses", "halo", "pipe"):
             assert rel(r[name], refs[name]) <= 1e-5, name
+        # the JAX gates: tests/test_longctx.py:159 and test_pipeline_parallel.py:54
+        assert np.max(np.abs(r["cb_sp"] - refs["cb_sp"])) < 2e-4
+        assert np.max(np.abs(r["cb_pipe"] - refs["cb_pipe"])) <= 3e-5
 
 
 def test_blocks_round_trip_every_spec(spawned):
