@@ -148,6 +148,25 @@ Phases, each of which fails the run loudly:
      and 4, and its sharded decode (8 x 100 frames) bitwise against
      `decode_batch` with the peak device memory of each; P4 ring, Ulysses,
      halo and pipeline collectives at one rank against the CPU plain path.
+  16. U, X and DR, slice 10 (after M): U1 serving from files at the
+     serving example's width (`dsr_tpu_torch/examples/serving_pipeline.py`:
+     16 utterances x 8 ch x 4 s of PCM16 WAV written by the port, the
+     native loader at batch 4, the staged fused analysis + MVDR kernel once
+     an utterance, MFCC, the (13, P) projection and the top-K decode over
+     phase 6's V = 2000 graph, the select kernel once a frame), the
+     loader's rows bitwise equal to read_wav, one batch's MFCC card vs CPU
+     (1e-4), utterances 0-1 frames 0-199 of the decode card vs CPU bitwise,
+     the pipelined and sequential loops counted and timed in turns, where a
+     batch's time goes; U2 config 1's GMMs and accumulators checkpointed on
+     the card after iteration 1, restored and trained on, bitwise equal to
+     the uninterrupted run, and phase 5's complex64 GSC state round-tripped;
+     U3 U1's corpus through `workqueue.run_batched` with `DecodeProgress`,
+     a failure injected in batch 3, resumed: every utterance decoded once,
+     the words equal to U1's; U4 `profiling.trace` around one batch, the
+     trace naming the stage scopes and the kernels; X the five examples'
+     `main` on the card, each with its own assertion and launches; DR
+     `entry.dryrun_multichip(1)`, one NCCL rank in a process of its own,
+     its graphs from the run's graph cache (phases 6 and P3 build into it).
 Phase 2 also holds the select kernel's lattice mode to its twin bitwise
 (U = 8 at the four pool shapes, nlat 1 / 3 / 4 / 8, and kcap 155 with nlat
 512) and the synthesis at M = 4096, m = 8, r = 4096 (m r = 32,768, through
@@ -344,9 +363,12 @@ def profile_frames(fn, frames: int) -> tuple[float, str]:
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # the device's work: kernels, copies and sets, not the device-side spans
+    # of `record_function` scopes, which the profiler also files under CUDA
+    busy = sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / frames
     events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA) / frames
     host = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: -e.self_cpu_time_total)
     top = ", ".join(f"{e.key[:40]} {e.self_cpu_time_total / frames:.1f} ({e.count // frames})"
@@ -458,12 +480,7 @@ def phase_parallel(ctx, task, tg, ll, kcap=256, beam=40.0):
 
             # ---- P3: config 4's premise graph, V = 20k trigram
             cfg20 = lvcsr.LvcsrConfig(vocab_size=20_000, n_tokens=300_000, branching=5)
-            with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_graphs_") as cache_dir:
-                os.environ["DSR_TPU_TORCH_CACHE"] = cache_dir
-                try:
-                    task20, t20 = secs(lambda: lvcsr.build_task(cfg20))
-                finally:
-                    del os.environ["DSR_TPU_TORCH_CACHE"]
+            task20, t20 = secs(lambda: lvcsr.build_task(cfg20))     # not in the run's cache yet
             g20 = task20.graph
             a_max = int(np.bincount(g20.src, minlength=g20.num_states).max())
             dense_b = g20.num_states * (16 * a_max + 4)
@@ -1695,12 +1712,374 @@ def phase_models(ctx):
     print(f"M launches: { {k: v - before[k] for k, v in ctx.counts.items() if v != before[k]} }")
 
 
+def decode_tables(g, ll, kcap: int, beam: float):
+    """The token pass's (tok_states, tok_arcs, tok_scores) of a dense decode."""
+    from dsr_tpu_torch.asr.decoder import topk_decoder as tk
+
+    st0, sc0 = tk.start_tokens(g, ll.shape[0], kcap)
+    return tk.token_pass(lambda s_, c_, l_: tk.candidates(g, s_, c_, l_), ll,
+                         np.full(ll.shape[0], ll.shape[1]), st0, sc0, beam, kcap)[2:5]
+
+
+def phase_u1(ctx):
+    """U1, serving from files at the serving example's width: 16 utterances
+    x 8 ch x 4 s of PCM16 WAV, the native loader at batch 4, the staged
+    fused analysis + MVDR kernel, MFCC, the (13, P) projection and the
+    top-K decode over phase 6's V = 2000 graph (its card and CPU tables
+    from `ctx`).  → (server, paths, words of the sequential run)."""
+    from dsr_tpu_torch.asr.decoder import topk_decoder as tk
+    from dsr_tpu_torch.examples import serving_pipeline as sp
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.utils.audio import BatchLoader, read_wav
+
+    dev, smi, bits = ctx.dev, ctx.smi, ctx.bits
+    server = sp.make_server(dev, ctx.task, ctx.tg)
+    cpu_server = sp.Server(server.cfg, server.w.cpu(), server.proj.cpu(), ctx.task, ctx.tg_cpu,
+                           server.num_samples)
+    S, B = server.num_samples, sp.BATCH
+    T = fb.num_frames(S, server.cfg)
+    t0 = time.perf_counter()
+    paths = sp.make_corpus(ctx.u_root, 16)
+    t_gen = time.perf_counter() - t0
+
+    # the loader's batches against read_wav of each file
+    with BatchLoader(paths, B, max_frames=S, max_channels=sp.CH) as loader:
+        batches = list(loader)
+    rows = [(r, int(n)) for a, lens in batches for r, n in zip(a, lens)]
+    same_rows = len(rows) == 16 and all(n == S and np.array_equal(r, read_wav(p_)[0])
+                                        for (r, n), p_ in zip(rows, paths))
+    print(f"U1: corpus of 16 x {sp.CH} ch x {sp.SECS:g} s PCM16 WAV written in {t_gen:.2f} s; "
+          f"{len(batches)} loader batches of {B}, every row bitwise equal to read_wav of its "
+          f"file {same_rows}")
+    check(same_rows, "U1: the loader's arrays equal read_wav")
+
+    # one batch's features, and the decode of utterances 0-1, card against CPU
+    x0 = batches[0][0]
+    f_card = server.features(server.upload(x0))
+    f_cpu = cpu_server.features(torch.from_numpy(x0))
+    e_feat = rel_err(f_card.cpu(), f_cpu)
+    ll = (f_card @ server.proj)[:2, :200].contiguous()
+    ll_cpu = ll.cpu()
+    same_tok = all(torch.equal(bits(c.cpu()), bits(h)) for c, h in zip(
+        decode_tables(ctx.tg, ll, sp.KCAP, sp.BEAM),
+        decode_tables(ctx.tg_cpu, ll_cpu, sp.KCAP, sp.BEAM)))
+    w_card = tk.decode_batch(ctx.tg, ll, [200, 200], kcap=sp.KCAP, beam=sp.BEAM)
+    w_cpu = tk.decode_batch(ctx.tg_cpu, ll_cpu, [200, 200], kcap=sp.KCAP, beam=sp.BEAM)
+    same_words = torch.equal(w_card[0], w_cpu[0]) and torch.equal(bits(w_card[1]), bits(w_cpu[1]))
+    print(f"U1: batch 0's MFCC ({tuple(f_card.shape)}) card vs CPU plain path rel err "
+          f"{e_feat:.2e} (bound 1e-4); utterances 0-1, frames 0-199 of its scores: token "
+          f"states, arcs and scores bitwise equal {same_tok}, words and scores equal {same_words}")
+    check(e_feat <= 1e-4, "U1: features, card vs CPU")
+    check(same_tok and same_words, "U1: the card's decode differs from the CPU plain path's")
+
+    # the serving loops, counted: one staged fused launch an utterance, one
+    # select launch a decode frame
+    expect = {"analysis_beamform_staged": 16, "select": len(batches) * T}
+    sp.serve_sequential(server, paths)                            # warm-up
+    torch.cuda.synchronize()
+    runs = {}
+    for name, fn in (("pipelined", sp.serve_pipelined), ("sequential", sp.serve_sequential),
+                     ("pipelined", sp.serve_pipelined), ("sequential", sp.serve_sequential)):
+        t0 = time.perf_counter()
+        nb, out = ctx.counted(f"U1: serving 16 files, {name}", lambda fn=fn: fn(server, paths),
+                              expect)
+        runs.setdefault(name, []).append((time.perf_counter() - t0, out))
+    words = [w for ol, _ in runs["sequential"][0][1] for w in server.words(ol)]
+    same_runs = all(torch.equal(a[0], b[0]) and torch.equal(bits(a[1]), bits(b[1]))
+                    for r in runs.values() for _, out in r
+                    for a, b in zip(out, runs["sequential"][0][1]))
+    check(same_runs, "U1: every serving run decodes the same")
+    audio_s = 16 * sp.SECS
+    rate = {k: [audio_s / t for t, _ in v] for k, v in runs.items()}
+    cost = sp.stage_costs(server, paths)
+    xb = server.upload(x0)
+    torch.cuda.synchronize()
+    front_ms = cuda_ms(lambda: server.logliks(xb), iters=5, warmup=1)
+    llb = server.logliks(xb)
+    t0 = time.perf_counter()
+    server.decode(llb)
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    ctx.u1_batch_ms = batch_ms = cost["compute"] * 1e3
+    print(f"U1: pipelined {rate['pipelined'][0]:.1f} / {rate['pipelined'][1]:.1f} audio-s/s, "
+          f"sequential {rate['sequential'][0]:.1f} / {rate['sequential'][1]:.1f} audio-s/s "
+          f"(in turns P S P S; {len(batches)} batches of {B} x {sp.SECS:g} s, {T} frames); "
+          f"loader next() {cost['load_cold'] * 1e3:.2f} ms cold, {cost['load_next'] * 1e3:.2f} "
+          f"ms prefetched in the loop  [{smi}]")
+    print(f"U1: one batch ({B} x {sp.SECS:g} s): {batch_ms:.1f} ms on the host clock, of it "
+          f"upload {cost['upload'] * 1e3:.2f} ms (pinned, host clock), front end (staged fused "
+          f"kernel x {B}, MFCC, projection) {front_ms:.3f} ms by CUDA events, decode "
+          f"{decode_ms:.1f} ms on the host clock (the device's share of the batch: U4)  [{smi}]")
+    return server, paths, words
+
+
+def phase_u2(ctx):
+    """U2, checkpoints on the card: config 1's GMMs and ML accumulators after
+    iteration 1 saved, restored and trained on to iteration 2, bitwise
+    against the uninterrupted run; phase 5's complex64 GSC state."""
+    from dsr_tpu_torch.asr.am import gmm
+    from dsr_tpu_torch.asr.train import ml, trainer
+    from dsr_tpu_torch.utils import checkpoint
+
+    dev = ctx.dev
+    task1, feats1, words1 = ctx.c1
+    S = task1.num_states
+    p0 = gmm.GmmParams(*trainer.init_gmm_from_feats(
+        feats1, [task1.align_graph(w)[0] for w in words1], S, 2,
+        np.random.default_rng(0))).to(dev)
+    inputs = trainer.estep_inputs(task1, feats1, words1, dev)
+    acc1 = trainer._estep(p0, *inputs, S)[0]
+    p1 = ml.mstep(acc1)
+    p2 = ml.mstep(trainer._estep(p1, *inputs, S)[0])                # uninterrupted
+    fields = ("means", "variances", "logweights")
+    with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_ckpt_") as d:
+        t0 = time.perf_counter()
+        checkpoint.save(os.path.join(d, "gmm"), {"params": p1, "acc": acc1})
+        t_save = time.perf_counter() - t0
+        blank = {"params": gmm.GmmParams(*(torch.zeros_like(getattr(p1, f)) for f in fields)),
+                 "acc": ml.GmmAccum(*(torch.zeros_like(a) for a in acc1))}
+        t0 = time.perf_counter()
+        got = checkpoint.restore(os.path.join(d, "gmm"), blank)
+        t_restore = time.perf_counter() - t0
+        checkpoint.save(os.path.join(d, "gsc"), {"wa": ctx.gsc_wa})
+        wa = checkpoint.restore(os.path.join(d, "gsc"), {"wa": torch.zeros_like(ctx.gsc_wa)})["wa"]
+    same_saved = all(torch.equal(getattr(got["params"], f), getattr(p1, f)) for f in fields) and \
+        all(torch.equal(a, b) for a, b in zip(got["acc"], acc1))
+    p2r = ml.mstep(trainer._estep(got["params"], *inputs, S)[0])
+    same_resume = all(torch.equal(getattr(p2r, f), getattr(p2, f)) for f in fields)
+    same_wa = (wa.dtype == torch.complex64 and wa.device.type == "cuda"
+               and torch.equal(wa, ctx.gsc_wa))
+    print(f"U2: config 1's GMMs + accumulators ({S} states) saved after iteration 1 in "
+          f"{t_save * 1e3:.1f} ms, restored in {t_restore * 1e3:.1f} ms onto the card, bitwise "
+          f"{same_saved}; iteration 2 from the restored checkpoint bitwise equal to the "
+          f"uninterrupted run {same_resume}; the GSC's wa {tuple(wa.shape)} {wa.dtype} back "
+          f"on {wa.device} bitwise {same_wa}")
+    check(same_saved and same_resume, "U2: the resumed training differs from the uninterrupted run")
+    check(same_wa, "U2: the complex64 GSC state did not round-trip")
+
+
+def phase_u3(ctx, server, paths, words_ref):
+    """U3, a restartable decode: U1's corpus through `workqueue.run_batched`
+    with `DecodeProgress`, an exception injected in batch 3, then resumed."""
+    import collections
+
+    from dsr_tpu_torch.ops import filterbank as fb
+    from dsr_tpu_torch.utils import checkpoint, workqueue
+    from dsr_tpu_torch.utils.audio import BatchLoader
+
+    ids = [os.path.basename(p_)[:-4] for p_ in paths]
+    by_id = dict(zip(ids, paths))
+    decoded, words, calls = collections.Counter(), {}, {"n": 0, "crash": 3}
+
+    def process(batch):
+        calls["n"] += 1
+        if calls["n"] == calls["crash"]:
+            raise RuntimeError("U3: injected failure")
+        with BatchLoader([by_id[u] for u in batch], len(batch), max_frames=server.num_samples,
+                         max_channels=8) as loader:
+            audio, _ = next(loader)
+        ol, _ = server.decode(server.logliks(server.upload(audio)))
+        for u, w in zip(batch, server.words(ol)):
+            words[u] = w
+            decoded[u] += 1
+
+    def crash_and_resume():
+        prog = checkpoint.DecodeProgress(os.path.join(ctx.u_root, "progress.json"))
+        try:
+            workqueue.run_batched(ids, 4, process, prog)
+        except RuntimeError:
+            pass
+        before = dict(decoded)
+        n = workqueue.run_batched(ids, 4, process, checkpoint.DecodeProgress(prog.path))
+        return before, n
+
+    T = fb.num_frames(server.num_samples, server.cfg)
+    (before, n), secs = ctx.timed(lambda: ctx.counted(
+        "U3: restartable decode (crash in batch 3, resume)", crash_and_resume,
+        {"analysis_beamform_staged": 16, "select": 4 * T}))
+    after = [u for u in ids if u not in before]
+    once = all(decoded[u] == 1 for u in ids)
+    same = [words[u] for u in ids] == words_ref
+    print(f"U3: {len(before)} utterances decoded before the failure in batch 3, {n} after the "
+          f"resume ({after[0]}..{after[-1]}), each utterance decoded once {once}; words equal to "
+          f"the uninterrupted run's {same}; {secs:.2f} s")
+    check(n == len(after) == 8 and once, "U3: the resume decodes every remaining utterance once")
+    check(same, "U3: the resumed decode's words differ from the uninterrupted run's")
+
+
+TRACE_NAMES = ("serving.beamform", "serving.features", "serving.decode",
+               "analysis_beamform_kernel", "select_kernel")
+
+
+def trace_batch(paths: list[str], log_dir: str) -> None:
+    """U4's traced process: the serving state on the card over the V = 2000
+    graph (from the run's graph cache), one warm-up batch of the files in
+    `paths`, then that batch under `profiling.trace` into `log_dir`, with
+    the launch counters set to 0 just before; prints one JSON line with the
+    names the trace holds, the device ms and count of each kernel and copy,
+    the trace's path and size, and the launches."""
+    from dsr_tpu_torch.asr import lvcsr
+    from dsr_tpu_torch.examples import serving_pipeline as sp
+    from dsr_tpu_torch.ops.cuda import filterbank as cfb
+    from dsr_tpu_torch.ops.cuda import select as csel
+    from dsr_tpu_torch.utils import profiling
+    from dsr_tpu_torch.utils.audio import read_wav
+
+    server = sp.make_server("cuda", lvcsr.build_task(lvcsr.LvcsrConfig()))
+    audio = np.stack([read_wav(p_)[0] for p_ in paths])
+    server.decode(server.logliks(server.upload(audio)))
+    torch.cuda.synchronize()
+    for mod in (cfb, csel):
+        mod.reset_launches()
+    with profiling.trace(log_dir) as prof:
+        server.decode(server.logliks(server.upload(audio)))
+    text = open(prof.trace_path).read()
+    device = {}                     # kernels and copies, not the scopes' device-side spans
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
+            ms, n = device.get(e.name, (0.0, 0))
+            device[e.name] = (ms + e.self_device_time_total / 1e3, n + 1)
+    print(json.dumps({"found": {n: text.count(n) for n in TRACE_NAMES}, "device": device,
+                      "trace": os.path.basename(prof.trace_path),
+                      "bytes": os.path.getsize(prof.trace_path),
+                      "launches": {k: n for mod in (cfb, csel) for k, n in mod.launches.items()
+                                   if n}}))
+
+
+def phase_u4(ctx, server, paths):
+    """U4, a trace of one U1 batch through `profiling.trace`, taken in a
+    process of its own (after many profiler sessions in one process the
+    profiler drops the first device records of a new session: the fused
+    kernels at a batch's start went missing in probes on the card): the
+    written Chrome trace names the stage scopes and the kernels, and the
+    batch launched exactly its kernels."""
+    from dsr_tpu_torch.ops import filterbank as fb
+
+    T = fb.num_frames(server.num_samples, server.cfg)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_trace_") as log_dir:
+        code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+                f"chip_smoke.trace_batch({paths[:4]!r}, {log_dir!r})")
+        (proc, secs) = ctx.timed(lambda: subprocess.run([sys.executable, "-c", code], cwd=here,
+                                                        capture_output=True, text=True,
+                                                        timeout=600))
+    check(proc.returncode == 0, f"U4: the traced process failed:\n{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    expect = {"analysis_beamform_staged": 4, "select": T}
+    print(f"U4: trace {res['trace']} ({res['bytes']} bytes) of one batch, in a process of its "
+          f"own ({secs:.1f} s), names {res['found']}; launches {res['launches']}")
+    dev_ms = res["device"]
+
+    def part(key):
+        hits = [v for k, v in dev_ms.items() if key in k]
+        return sum(ms for ms, _ in hits), sum(n for _, n in hits)
+
+    busy = sum(ms for ms, _ in dev_ms.values())
+    (f_ms, f_n), (s_ms, s_n) = part("analysis_beamform_kernel"), part("select_kernel")
+    print(f"U4: the traced batch's device time {busy:.2f} ms, a busy share of "
+          f"{busy / ctx.u1_batch_ms:.3f} of U1's {ctx.u1_batch_ms:.1f} ms batch: staged fused "
+          f"{f_n} x {f_ms / max(f_n, 1):.4f} ms, select {s_n} x {s_ms / max(s_n, 1):.4f} ms, "
+          f"the other {sum(n for _, n in dev_ms.values()) - f_n - s_n} kernels and copies "
+          f"{busy - f_ms - s_ms:.2f} ms (top: " + ", ".join(
+              f"{k[:40]} {v[0]:.2f} ms x {v[1]}" for k, v in sorted(
+                  dev_ms.items(), key=lambda kv: -kv[1][0])[:4]) + f")  [{ctx.smi}]")
+    check(res["launches"] == expect, f"U4: the batch launched {res['launches']}, not {expect}")
+    check(all(res["found"].values()), "U4: the trace misses a scope or a kernel")
+    for name, n in res["launches"].items():
+        ctx.counts[name] += n
+
+
+def tally(ctx, path, fn, kernels):
+    """fn() with the launch counters set to 0 just before and read just after:
+    every kernel of `kernels` must have launched (the counts depend on the
+    data), and the launches join the run's totals."""
+    for mod in ctx.counters:
+        mod.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {name: n for mod in ctx.counters for name, n in mod.launches.items() if n}
+    print(f"launches on path {path}: {got}")
+    check(all(got.get(k, 0) > 0 for k in kernels), f"path {path} launched {got}, needs {kernels}")
+    for name, n in got.items():
+        ctx.counts[name] += n
+    return out
+
+
+def phase_x(ctx):
+    """X, the five examples' `main` on the card at their own sizes, each with
+    its built-in assertion (the serving example over phase 6's graph)."""
+    from dsr_tpu_torch.examples import (end_to_end_asr, serving_pipeline, streaming_asr,
+                                        streaming_beamformer, streaming_conformer_asr)
+
+    dev = ctx.dev
+    cases = (
+        ("serving_pipeline", lambda: serving_pipeline.main(16, dev, ctx.task, ctx.tg),
+         ("analysis_beamform_staged", "select")),
+        ("end_to_end_asr", lambda: end_to_end_asr.main(dev), ("analysis", "synthesis")),
+        ("streaming_asr", lambda: streaming_asr.main(dev), ("analysis", "select")),
+        # DsrPipeline's GSC is the block NLMS in plain PyTorch, as the JAX
+        # package's pipeline runs `gsc_nlms_block`, not the GSC kernel
+        ("streaming_beamformer", lambda: streaming_beamformer.main(dev), ("analysis", "synthesis")),
+        ("streaming_conformer_asr", lambda: streaming_conformer_asr.main(dev), ("analysis",)),
+    )
+    for name, fn, kernels in cases:
+        print(f"X: {name}:")
+        out, secs = ctx.timed(lambda: tally(ctx, f"X: {name}", fn, kernels))
+        keys = {"serving_pipeline": ("pipelined", "sequential"),
+                "end_to_end_asr": ("wer", "audio_sec_per_sec"),
+                "streaming_asr": ("streamed",), "streaming_beamformer": ("snr_in_db",),
+                "streaming_conformer_asr": ("hyp", "steps")}[name]
+        print(f"X: {name} passed in {secs:.1f} s: " + ", ".join(f"{k} {out[k]}" for k in keys)
+              + f"  [{ctx.smi}]")
+
+
+def phase_dr(ctx):
+    """DR, `dryrun_multichip(1)` on the card: one NCCL rank in a process of
+    its own, its graphs from the run's graph cache (built by phases 6 and P3)."""
+    from dsr_tpu_torch.entry import dryrun_multichip
+
+    torch.cuda.empty_cache()
+    res, secs = ctx.timed(lambda: dryrun_multichip(1))
+    print(f"DR: dryrun_multichip(1) in {secs:.1f} s (the rank's steps: {res['seconds']}); "
+          f"launches in the rank's process {res['launches']}  [{ctx.smi}]")
+    check(res["resume_bitwise"] and res["V20k"]["states"] > 6_000_000,
+          "DR: the dry run's checkpoint resume or its V = 20k graph")
+    for name, n in res["launches"].items():
+        ctx.counts[name] += n
+
+
+def phase_utilities(ctx):
+    """U1-U4, X and DR (slice 10), each phase's seconds; prints the launches
+    the phases added."""
+    before = dict(ctx.counts)
+    secs = {}
+    with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_u_") as root:
+        ctx.u_root = root
+        t0 = time.perf_counter()
+        server, paths, words = phase_u1(ctx)
+        secs["U1"] = time.perf_counter() - t0
+        for name, fn in (("U2", lambda: phase_u2(ctx)),
+                         ("U3", lambda: phase_u3(ctx, server, paths, words)),
+                         ("U4", lambda: phase_u4(ctx, server, paths)),
+                         ("X", lambda: phase_x(ctx)), ("DR", lambda: phase_dr(ctx))):
+            t0 = time.perf_counter()
+            fn()
+            secs[name] = time.perf_counter() - t0
+    print("U / X / DR seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f"; together {sum(secs.values()):.1f} s")
+    print(f"U / X / DR launches: "
+          f"{ {k: v - before[k] for k, v in ctx.counts.items() if v != before[k]} }")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script runs on the card",
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # one graph cache for the run, empty at the start: phases 6 and P3 build
+    # their graphs into it and DR's process reads them from it
+    graph_cache = tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_graphs_")
+    os.environ["DSR_TPU_TORCH_CACHE"] = graph_cache.name
     from dsr_tpu_torch.asr import lvcsr, phone_task, smallvocab
     from dsr_tpu_torch.asr import path as apath
     from dsr_tpu_torch.asr.am import gmm
@@ -2548,10 +2927,10 @@ def main() -> int:
         v = bf.steering_vectors(taus, cfg.M, SR)
         Gamma = bf.diffuse_coherence(POS8, cfg.M, SR, 343.0, A.device)
         w = bf.mvdr_weights(v, Gamma, 1e-2)
-        Y_g, _ = bf.gsc_nlms(A, w, bf.blocking_matrix(v), 0.05, 1e-6, 10.0)
+        Y_g, wa_g = bf.gsc_nlms(A, w, bf.blocking_matrix(v), 0.05, 1e-6, 10.0)
         Y_d = bf.ds_beamform(A, taus_t, cfg.M, SR)
         return dict(Y_g=Y_g, Y_d=Y_d, y_g=fb.synthesis(Y_g, cfg, S), y_d=fb.synthesis(Y_d, cfg, S),
-                    feats=ft.cmn(ft.mfcc_from_subbands(Y_g, cfg.M, SR)))
+                    feats=ft.cmn(ft.mfcc_from_subbands(Y_g, cfg.M, SR)), wa=wa_g)
 
     x3_t = torch.as_tensor(x3, device=dev)
     out3 = counted("config 3 (TDOA -> IEKF -> tracked GSC + tracked DS -> synthesis -> MFCC)",
@@ -2655,22 +3034,18 @@ def main() -> int:
                       for k, v in times_p.items()))
 
     # ---- 6. the decode ------------------------------------------------------
-    with tempfile.TemporaryDirectory(prefix="dsr_tpu_torch_graphs_") as cache_dir:
-        os.environ["DSR_TPU_TORCH_CACHE"] = cache_dir   # a fresh build, not a cached graph
-        try:
-            t0 = time.perf_counter()
-            task = lvcsr.build_task(lvcsr.LvcsrConfig())
-            t_task = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            sg = sd.build_split_graph(task.graph, a0=2, device=dev)
-            t_split = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            tg = tk.build_token_graph(task.graph, device=dev)
-            t_dense = time.perf_counter() - t0
-            cfg300 = lvcsr.LvcsrConfig(vocab_size=300, n_tokens=5000, branching=3)
-            task300 = lvcsr.build_task(cfg300)
-        finally:
-            del os.environ["DSR_TPU_TORCH_CACHE"]
+    # the run's graph cache is empty here: a fresh build, not a cached graph
+    t0 = time.perf_counter()
+    task = lvcsr.build_task(lvcsr.LvcsrConfig())
+    t_task = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sg = sd.build_split_graph(task.graph, a0=2, device=dev)
+    t_split = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tg = tk.build_token_graph(task.graph, device=dev)
+    t_dense = time.perf_counter() - t0
+    cfg300 = lvcsr.LvcsrConfig(vocab_size=300, n_tokens=5000, branching=3)
+    task300 = lvcsr.build_task(cfg300)
     print(f"graph build V=2000 trigram (the port's WFST core): {task.graph.num_states} states, "
           f"{task.graph.num_arcs} arcs, a_max {tg.a_max}, {t_task:.2f} s "
           f"({task.build_stats}); split tables a0=2 ({sg.num_groups} overflow groups) "
@@ -3173,7 +3548,9 @@ def main() -> int:
     # ---- 11. FE: the rest of the front end (slice 8) --------------------------
     ctx = types.SimpleNamespace(dev=dev, smi=smi, cfg=cfg, counted=counted, timed=timed,
                                 counts=counts, bits=bits, host_copy=host_copy, wer_of=wer_of,
-                                c1_feats=c1_feats)
+                                c1_feats=c1_feats, counters=counters, record=record, task=task,
+                                tg=tg, tg_cpu=cpu_graphs["dense"], gsc_wa=out3["wa"],
+                                c1=(task1, feats1, words1))
     phase_frontend(ctx)
 
     # ---- 12-14. T, TT and AD: triphones and adaptation ---------------------
@@ -3183,6 +3560,10 @@ def main() -> int:
 
     # ---- 15. M: the models, config 5 (slice 9) ------------------------------
     phase_models(ctx)
+
+    # ---- 16. U, X, DR: the utilities, the examples, the dry run (slice 10) ---
+    phase_utilities(ctx)
+    graph_cache.cleanup()
 
     print(f"main path launches, all paths: {counts}")
 

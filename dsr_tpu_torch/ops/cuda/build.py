@@ -3,11 +3,13 @@
 Each source has a plain C interface and becomes one library,
 `_build/lib<name>-<hash>.so`, where the hash covers the flags, the source
 and the headers it includes by `#include "..."` (`csrc/fft.cuh`, shared by
-the analysis and the synthesis), so an edited source or header is rebuilt
-and a built one is reused.  The CUDA
+the analysis and the synthesis; `utils/csrc/audio.cpp` includes the WAV
+I/O and the corpus loader sources, which become one library), so an
+edited source or header is rebuilt and a built one is reused.  The CUDA
 sources (`csrc/*.cu`) are compiled by `nvcc` for Hopper (`sm_90a`); the
-WFST core (`asr/fsm/csrc/wfst.cpp`, host code) by `g++` with the flags of
-`native/Makefile`.  `library(name)` builds a source if needed and loads it
+host code (the WFST core `asr/fsm/csrc/wfst.cpp`, the audio library
+`utils/csrc/audio.cpp`) by `g++` with the flags of `native/Makefile`
+(its `-lpthread` as `-pthread`: the streamer and the loader run threads).  `library(name)` builds a source if needed and loads it
 with ctypes; a failed build raises with the compiler's output.
 """
 
@@ -28,7 +30,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
-GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared")
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-Wall", "-shared", "-pthread")
 # name -> (source, compiler)
 SOURCES = {
     "analysis": (PACKAGE / "ops" / "cuda" / "csrc" / "analysis.cu", "nvcc"),
@@ -38,6 +40,7 @@ SOURCES = {
     "steering": (PACKAGE / "ops" / "cuda" / "csrc" / "steering.cu", "nvcc"),
     "viterbi": (PACKAGE / "ops" / "cuda" / "csrc" / "viterbi.cu", "nvcc"),
     "wfst": (PACKAGE / "asr" / "fsm" / "csrc" / "wfst.cpp", "g++"),
+    "audio": (PACKAGE / "utils" / "csrc" / "audio.cpp", "g++"),
 }
 
 
@@ -57,7 +60,8 @@ def gxx() -> str:
     """The host C++ compiler: $CXX, or `g++` on PATH."""
     found = shutil.which(os.environ.get("CXX", "g++"))
     if found is None:
-        raise RuntimeError("g++ not found: the WFST core needs a C++17 compiler (set CXX)")
+        raise RuntimeError("g++ not found: the WFST core and the audio library need a "
+                           "C++17 compiler (set CXX)")
     return found
 
 

@@ -22,6 +22,14 @@ mode "run" (4 ranks, one spawn for every case):
     two meshes, and a mesh over part of the world;
   and writes outdir/rank<r>.npz.
 
+mode "dryrun" (4 ranks, tests/test_torch_dryrun.py): the steps of
+`entry.dryrun_multichip` that no other worker mode runs, on its 4-rank
+(data 2, model 2) mesh: the GMM training step, the subband-sharded front
+end (on a (data 2, subband 2) mesh, the 4-rank split has no subband
+axis), the Conformer-CTC step (float32) and the joint step (float64) with
+the test's converted weights, and the sharded GMM checkpoint under
+<outdir>/ckpt with its resumed step; writes outdir/dryrun<r>.npz.
+
 mode "hang" (2 ranks, heartbeat 5 s): rank 1 joins, then sleeps through
 the collective; rank 0's all-reduce must raise, and it writes
 outdir/drill.json with the error and the seconds it waited.
@@ -141,6 +149,46 @@ def run(rank, inp, out):
     np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
 
 
+def dryrun(rank, inp, out):
+    from dsr_tpu_torch import entry
+    from dsr_tpu_torch.models.conformer import ConformerCtc
+    from dsr_tpu_torch.models.joint import JointBeamformerCtc
+
+    res = {}
+    t = lambda name: torch.as_tensor(inp[name])  # noqa: E731
+    weights = lambda prefix: {k[len(prefix):]: t(k) for k in inp.files  # noqa: E731
+                              if k.startswith(prefix)}
+    mesh = make_mesh(entry.mesh_split(4), "cpu")
+    gmm_in = {k[4:]: inp[k] for k in inp.files if k.startswith("gmm_")}
+    params, acc = entry.gmm_train_step(mesh, gmm_in, entry.gmm_params_block(mesh, gmm_in))
+    for name, a in (("means", params.means), ("variances", params.variances),
+                    ("logw", params.logweights), ("occ", acc.occ)):
+        res[f"gmm_{name}"] = sharding.gather_block(a, mesh, sharding.GMM_PARAMS).numpy()
+    resumed, straight = entry.gmm_checkpoint_resume(mesh, gmm_in, params, acc,
+                                                    os.path.join(out, "ckpt"))
+    res["resume_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        (resumed.means, resumed.variances, resumed.logweights),
+        (straight.means, straight.variances, straight.logweights)))
+    res["gmm2_means"] = sharding.gather_block(straight.means, mesh, sharding.GMM_PARAMS).numpy()
+
+    fe_mesh = make_mesh(MeshConfig(data=2, subband=2), "cpu")
+    Y = entry.frontend_step(fe_mesh, inp["xw"], inp["taus"])
+    res["frontend"] = sharding.gather_block(Y, fe_mesh, sharding.BEAMFORMED).numpy()
+
+    model = ConformerCtc(8, dim=32, layers=1, heads=2, device="cpu")
+    model.load_state_dict(weights("cf_"), strict=True)
+    res["cf_loss"] = entry.conformer_step(mesh, model, torch.optim.Adam(model.parameters(), 1e-3),
+                                          inp["Xc"], inp["yc"]).numpy()
+    res.update({f"cfg_{k}": p.grad.numpy() for k, p in model.named_parameters()})
+
+    jm = JointBeamformerCtc(4, 64, dim=16, layers=1, heads=2, hidden=16, device="cpu").double()
+    jm.load_state_dict({k: v.double() for k, v in weights("jt_").items()}, strict=True)
+    res["jt_loss"] = entry.joint_step(mesh, jm, torch.optim.Adam(jm.parameters(), 1e-3),
+                                      t("Xj"), inp["yj"]).numpy()
+    res.update({f"jtg_{k}": p.grad.numpy() for k, p in jm.named_parameters()})
+    np.savez(os.path.join(out, f"dryrun{rank}.npz"), **res)
+
+
 def main():
     rank, world, store, inputs, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
                                        sys.argv[4], sys.argv[5])
@@ -166,7 +214,7 @@ def main():
             json.dump(res, fh)
         os._exit(0)                  # no teardown collective with a dead peer
     initialize_distributed(f"file://{store}", world, rank, heartbeat_timeout_s=60, device="cpu")
-    run(rank, np.load(inputs), out)
+    (dryrun if mode == "dryrun" else run)(rank, np.load(inputs), out)
     dist.barrier()
     dist.destroy_process_group()
 
