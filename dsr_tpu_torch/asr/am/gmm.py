@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from dsr_tpu_torch.utils import profiling
+
 
 def _f32(a) -> torch.Tensor:
     """A float32 copy of an array or tensor (never a view of the caller's data)."""
@@ -74,7 +76,8 @@ def _component_loglik(p: GmmParams, feats: torch.Tensor) -> torch.Tensor:
 
 def loglik(p: GmmParams, feats: torch.Tensor) -> torch.Tensor:
     """(…, T, D) → (…, T, S) mixture log-likelihoods (one matmul)."""
-    return torch.logsumexp(_component_loglik(p, feats), dim=-1)
+    with profiling.scope("gmm.loglik"):
+        return torch.logsumexp(_component_loglik(p, feats), dim=-1)
 
 
 def component_posteriors(p: GmmParams, feats: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

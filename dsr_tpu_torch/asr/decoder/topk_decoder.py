@@ -29,6 +29,16 @@ to a_max·kcap as the reference cuts it.
 
 Outputs: token tables stay on the decoder's device; the traceback's
 olabels and scores are CPU tensors.
+
+Spans (`utils/profiling.scope`): `decoder.batch` around `decode_batch`,
+`decoder.frame_loop` (device-timed) around every frame loop,
+`decoder.traceback` around every traceback, holding
+`decoder.traceback.copy` (device-timed: the token tables' copies to the
+host) and `decoder.traceback.walk` (the NumPy walk).  While the recorder
+is on the frame loop also counts `decoder.frames` (T a call),
+`decoder.active_rows`, `decoder.candidates_written` (U·N a frame),
+`decoder.candidates_live` and `decoder.slots_live` (score > NEG/2 on
+active rows, summed on the device).
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 
 from dsr_tpu_torch.asr.fsm.packed import PackedGraph
 from dsr_tpu_torch.ops.cuda.select import recombine_topk
+from dsr_tpu_torch.utils import profiling
 from dsr_tpu_torch.utils.device import resolve
 
 NEG = -1e30
@@ -119,23 +130,46 @@ def token_pass(expand, ll, lengths, states, scores, beam, kcap: int, nlat: int =
         alts = (torch.empty((T, U, kcap, nlat), dtype=torch.int32, device=dev),
                 torch.empty((T, U, kcap, nlat), dtype=torch.float32, device=dev))
     extras = []
-    for t in range(T):
-        cand, dst, arcs, *extra = expand(states, scores, ll[:, t])
-        extras.append(extra)
-        new_scores, new_states, new_arcs, *alt = recombine_topk(cand, dst, arcs, beam_t, kcap,
-                                                                nlat)
-        # the select writes dead slots as (score <= NEG/2, dst 0, arc -1)
-        if t >= lengths.min():   # some utterance has ended: carry passes through
-            keep = torch.as_tensor(t < lengths, device=dev)[:, None]
-            new_states = torch.where(keep, new_states, states)
-            new_scores = torch.where(keep, new_scores, scores)
-            new_arcs = torch.where(keep, new_arcs, -1)
-            alt = [torch.where(keep[..., None], a, fill) for a, fill in zip(alt, (NEG, -1))]
-        states, scores = new_states, new_scores
-        tok_states[t], tok_arcs[t], tok_scores[t] = states, new_arcs, scores
-        if nlat:   # the select gives (scores, arcs); the tables are (arcs, scores)
-            alts[1][t], alts[0][t] = alt
+    counting = profiling.is_recording()
+    if counting:   # each frame's live candidates a row
+        live, written = torch.empty((T, U), dtype=torch.int64, device=dev), 0
+    with profiling.scope("decoder.frame_loop", device=dev):
+        for t in range(T):
+            cand, dst, arcs, *extra = expand(states, scores, ll[:, t])
+            extras.append(extra)
+            new_scores, new_states, new_arcs, *alt = recombine_topk(cand, dst, arcs, beam_t,
+                                                                    kcap, nlat)
+            if counting:
+                torch.sum(cand > NEG / 2, 1, out=live[t])
+                written += cand.numel()
+            # the select writes dead slots as (score <= NEG/2, dst 0, arc -1)
+            if t >= lengths.min():   # some utterance has ended: carry passes through
+                keep = torch.as_tensor(t < lengths, device=dev)[:, None]
+                new_states = torch.where(keep, new_states, states)
+                new_scores = torch.where(keep, new_scores, scores)
+                new_arcs = torch.where(keep, new_arcs, -1)
+                alt = [torch.where(keep[..., None], a, fill) for a, fill in zip(alt, (NEG, -1))]
+            states, scores = new_states, new_scores
+            tok_states[t], tok_arcs[t], tok_scores[t] = states, new_arcs, scores
+            if nlat:   # the select gives (scores, arcs); the tables are (arcs, scores)
+                alts[1][t], alts[0][t] = alt
+    if counting:
+        _count_frames(live, tok_scores, lengths, written)
     return states, scores, tok_states, tok_arcs, tok_scores, extras, alts
+
+
+def _count_frames(live, tok_scores, lengths: np.ndarray, written: int) -> None:
+    """The frame loop's counters, summed on the device over the active rows
+    (frame t < the row's length): live (T, U) holds each frame's live
+    candidates a row; the live slots are read from the token table, which
+    holds the select's scores on active rows."""
+    T = live.shape[0]
+    active = torch.as_tensor(np.arange(T)[:, None] < lengths, device=live.device)
+    profiling.count("decoder.frames", T)
+    profiling.count("decoder.active_rows", int(np.minimum(lengths, T).sum()))
+    profiling.count("decoder.candidates_written", written)
+    profiling.count("decoder.candidates_live", (live * active).sum())
+    profiling.count("decoder.slots_live", ((tok_scores > NEG / 2).sum(2) * active).sum())
 
 
 def _best_final(states_f: np.ndarray, scores_f: np.ndarray, final_f: np.ndarray):
@@ -182,14 +216,18 @@ def traceback_lookups(tok_states, tok_arcs, states_f, scores_f, lengths, source_
     states and the olabels of arc ids given as tensors on the carry's
     device; source_of maps host arc ids to their source states.  The token
     tables come to the host once, and no whole graph table is copied."""
-    best_state, best_score = _best_final(states_f.cpu().numpy(), scores_f.cpu().numpy(),
-                                         final_of(states_f).cpu().numpy())
-    arcs, valid = _backtrack(tok_states.cpu().numpy(), tok_arcs.cpu().numpy(), best_state,
-                             lengths, source_of)
     dev = states_f.device
-    olabs = torch.where(torch.as_tensor(valid, device=dev),
-                        olabel_of(torch.as_tensor(arcs, device=dev)), 0)
-    return olabs.T.contiguous().cpu(), torch.from_numpy(best_score)
+    with profiling.scope("decoder.traceback"):
+        with profiling.scope("decoder.traceback.copy", device=dev):
+            final = (states_f.cpu().numpy(), scores_f.cpu().numpy(),
+                     final_of(states_f).cpu().numpy())
+            tables = tok_states.cpu().numpy(), tok_arcs.cpu().numpy()
+        with profiling.scope("decoder.traceback.walk"):
+            best_state, best_score = _best_final(*final)
+            arcs, valid = _backtrack(*tables, best_state, lengths, source_of)
+        olabs = torch.where(torch.as_tensor(valid, device=dev),
+                            olabel_of(torch.as_tensor(arcs, device=dev)), 0)
+        return olabs.T.contiguous().cpu(), torch.from_numpy(best_score)
 
 
 def traceback_tables(graph, tok_states, tok_arcs, states_f, scores_f, lengths, source_of):
@@ -297,15 +335,16 @@ def decode_batch(graph: TokenGraph, loglik, lengths, kcap: int = 256, beam: floa
     """loglik (U, T, P), lengths (U,) → (olabels (U, T), scores (U,)
     [, spill (U, T), all False]): the U utterances go through each frame's
     select together."""
-    ll = _logliks(graph, loglik)
-    U, T = ll.shape[:2]
-    lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths,
-                         np.int64).reshape(U)
-    kcap = min(kcap, graph.num_states)
-    states, scores = start_tokens(graph, U, kcap)
-    sf, scf, ts, ta, _, _, _ = token_pass(partial(candidates, graph), ll, lengths, states,
-                                          scores, beam, kcap)
-    olabs, best = _traceback(graph, ts, ta, sf, scf, lengths)
+    with profiling.scope("decoder.batch"):
+        ll = _logliks(graph, loglik)
+        U, T = ll.shape[:2]
+        lengths = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor) else lengths,
+                             np.int64).reshape(U)
+        kcap = min(kcap, graph.num_states)
+        states, scores = start_tokens(graph, U, kcap)
+        sf, scf, ts, ta, _, _, _ = token_pass(partial(candidates, graph), ll, lengths, states,
+                                              scores, beam, kcap)
+        olabs, best = _traceback(graph, ts, ta, sf, scf, lengths)
     if return_spill:
         return olabs, best, torch.zeros((U, T), dtype=torch.bool, device=ll.device)
     return olabs, best

@@ -44,17 +44,12 @@ from dsr_tpu_torch.models import joint as mj
 from dsr_tpu_torch.ops import beamforming as bf
 from dsr_tpu_torch.ops import features as ft
 from dsr_tpu_torch.ops import filterbank as fb
-from dsr_tpu_torch.ops.cuda import filterbank as cuda_fb
-from dsr_tpu_torch.ops.cuda import gsc as cuda_gsc
-from dsr_tpu_torch.ops.cuda import select as cuda_select
-from dsr_tpu_torch.ops.cuda import steering as cuda_steering
-from dsr_tpu_torch.ops.cuda import viterbi as cuda_viterbi
 from dsr_tpu_torch.parallel import make_mesh
 from dsr_tpu_torch.parallel import sharding as shd
 from dsr_tpu_torch.parallel.decoder import make_sharded_decode
 from dsr_tpu_torch.parallel.mesh import axis_size, initialize_distributed, mesh_device
 from dsr_tpu_torch.parallel.pipeline_parallel import pipeline_apply
-from dsr_tpu_torch.utils import checkpoint, corpus
+from dsr_tpu_torch.utils import checkpoint, corpus, profiling
 from dsr_tpu_torch.utils.design import get_prototypes, steering_delays
 from dsr_tpu_torch.utils.device import resolve
 
@@ -315,8 +310,7 @@ def shard_bytes(graph, n: int) -> int:
 
 def _launches() -> dict[str, int]:
     """This process's kernel launches so far, by kernel (the wrappers' counters)."""
-    return {k: n for mod in (cuda_fb, cuda_gsc, cuda_select, cuda_steering, cuda_viterbi)
-            for k, n in mod.launches.items() if n}
+    return {k: n for k, n in profiling.launches().items() if n}
 
 
 def _dryrun_rank(rank: int, n: int, device_type: str, store: str, out: str) -> None:

@@ -22,6 +22,7 @@ import torch
 
 from dsr_tpu_torch.ops.cuda import gsc as _gsc
 from dsr_tpu_torch.ops.cuda import steering as _steer
+from dsr_tpu_torch.utils import profiling
 
 
 def subband_freqs(M: int, sample_rate: float, device=None) -> torch.Tensor:
@@ -30,10 +31,11 @@ def subband_freqs(M: int, sample_rate: float, device=None) -> torch.Tensor:
 
 def steering_vectors(taus_sec: torch.Tensor, M: int, sample_rate: float) -> torch.Tensor:
     """Array manifold: (..., N) delays (sec) → (..., K, N) complex64."""
-    taus = torch.as_tensor(taus_sec, dtype=torch.float32)
-    f = subband_freqs(M, sample_rate, taus.device)
-    phase = -2.0 * math.pi * f[:, None] * taus[..., None, :]
-    return torch.complex(torch.cos(phase), torch.sin(phase))
+    with profiling.scope("beamforming.steering_vectors"):
+        taus = torch.as_tensor(taus_sec, dtype=torch.float32)
+        f = subband_freqs(M, sample_rate, taus.device)
+        phase = -2.0 * math.pi * f[:, None] * taus[..., None, :]
+        return torch.complex(torch.cos(phase), torch.sin(phase))
 
 
 def ds_weights(v: torch.Tensor) -> torch.Tensor:
@@ -73,9 +75,10 @@ def mvdr_precompute(Gamma: torch.Tensor, loading: float = 1e-2) -> torch.Tensor:
 
 def mvdr_weights_from_inv(v: torch.Tensor, Gamma_inv: torch.Tensor) -> torch.Tensor:
     """w = Γl⁻¹v / (vᴴΓl⁻¹v) from the precomputed inverse."""
-    gv = torch.einsum("...knm,...km->...kn", Gamma_inv, v)
-    denom = torch.sum(v.conj() * gv, dim=-1, keepdim=True)
-    return gv / denom
+    with profiling.scope("beamforming.mvdr_weights"):
+        gv = torch.einsum("...knm,...km->...kn", Gamma_inv, v)
+        denom = torch.sum(v.conj() * gv, dim=-1, keepdim=True)
+        return gv / denom
 
 
 def apply_weights(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ import functools
 import numpy as np
 import torch
 
+from dsr_tpu_torch.utils import profiling
 from dsr_tpu_torch.utils.design import dct_matrix, mel_filterbank
 
 
@@ -69,18 +70,20 @@ def mfcc_from_subbands(
     vtln_warp: float = 1.0,
 ) -> torch.Tensor:
     """Subband-domain MFCC: (..., T, M//2+1) complex → (..., T, num_cepstra)."""
-    fmax = sample_rate / 2 if fmax is None else fmax
-    W, C = _mel_dct(num_mel, num_cepstra, M // 2 + 1, sample_rate / M, fmin, fmax, vtln_warp,
-                    Y.device)
-    P = Y.abs() ** 2
-    W, C = W.to(P.dtype), C.to(P.dtype)       # float32 matrices; float64 for complex128 Y
-    mel_e = torch.clamp_min(P @ W.T, 1e-10)
-    return torch.log(mel_e) @ C.T
+    with profiling.scope("features.mfcc"):
+        fmax = sample_rate / 2 if fmax is None else fmax
+        W, C = _mel_dct(num_mel, num_cepstra, M // 2 + 1, sample_rate / M, fmin, fmax,
+                        vtln_warp, Y.device)
+        P = Y.abs() ** 2
+        W, C = W.to(P.dtype), C.to(P.dtype)       # float32 matrices; float64 for complex128 Y
+        mel_e = torch.clamp_min(P @ W.T, 1e-10)
+        return torch.log(mel_e) @ C.T
 
 
 def cmn(feats: torch.Tensor) -> torch.Tensor:
     """Per-utterance cepstral mean normalisation over the frame axis (-2)."""
-    return feats - feats.mean(dim=-2, keepdim=True)
+    with profiling.scope("features.cmn"):
+        return feats - feats.mean(dim=-2, keepdim=True)
 
 
 def _edge_pad(feats: torch.Tensor, before: int, after: int) -> torch.Tensor:

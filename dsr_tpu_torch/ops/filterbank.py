@@ -22,7 +22,7 @@ import torch
 
 from dsr_tpu_torch.config import FilterbankConfig
 from dsr_tpu_torch.ops.cuda import filterbank as _kern
-from dsr_tpu_torch.utils import design
+from dsr_tpu_torch.utils import design, profiling
 from dsr_tpu_torch.utils.design import get_prototypes
 from dsr_tpu_torch.utils.device import resolve
 
@@ -100,9 +100,10 @@ def analysis_beamform_staged(xp: torch.Tensor, idx, w: torch.Tensor, cfg: Filter
     T = num_frames(num_samples), equal to `analysis_beamform(xp[idx], w)`
     when num_samples is the bank's S.
     """
-    hf = prototype_tensors(cfg, xp.device)[0] if hf is None else as_f32(hf, xp.device)
-    return _kern.analysis_beamform_staged(xp, idx, hf, w.to(torch.complex64).contiguous(),
-                                          cfg.M, cfg.m, cfg.r, num_frames(num_samples, cfg))
+    with profiling.scope("filterbank.analysis_beamform"):
+        hf = prototype_tensors(cfg, xp.device)[0] if hf is None else as_f32(hf, xp.device)
+        return _kern.analysis_beamform_staged(xp, idx, hf, w.to(torch.complex64).contiguous(),
+                                              cfg.M, cfg.m, cfg.r, num_frames(num_samples, cfg))
 
 
 def synthesis(
@@ -118,16 +119,17 @@ def synthesis(
     JAX package's slice, the start is clamped so that `out_len` samples fit
     in the overlap-added stream.
     """
-    A = A.to(torch.complex64)
-    if gf is None or delay is None:
-        _, gf_, delay_ = prototype_tensors(cfg, A.device)
-        gf = gf_ if gf is None else gf
-        delay = delay_ if delay is None else delay
-    T = A.shape[-2]
-    ylen = (T - 1) * cfg.D + cfg.L
-    if out_len > ylen:
-        raise ValueError(f"out_len={out_len} exceeds the {ylen} samples that {T} frames give")
-    start = min(max(cfg.L - cfg.D + int(delay), 0), ylen - out_len)
-    flat = A.reshape(-1, T, A.shape[-1]).contiguous()
-    y = _kern.synthesis(flat, as_f32(gf, A.device), cfg.M, cfg.m, cfg.r, start, out_len)
-    return y.reshape(*A.shape[:-2], out_len)
+    with profiling.scope("filterbank.synthesis"):
+        A = A.to(torch.complex64)
+        if gf is None or delay is None:
+            _, gf_, delay_ = prototype_tensors(cfg, A.device)
+            gf = gf_ if gf is None else gf
+            delay = delay_ if delay is None else delay
+        T = A.shape[-2]
+        ylen = (T - 1) * cfg.D + cfg.L
+        if out_len > ylen:
+            raise ValueError(f"out_len={out_len} exceeds the {ylen} samples that {T} frames give")
+        start = min(max(cfg.L - cfg.D + int(delay), 0), ylen - out_len)
+        flat = A.reshape(-1, T, A.shape[-1]).contiguous()
+        y = _kern.synthesis(flat, as_f32(gf, A.device), cfg.M, cfg.m, cfg.r, start, out_len)
+        return y.reshape(*A.shape[:-2], out_len)

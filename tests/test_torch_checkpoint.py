@@ -110,13 +110,13 @@ def test_decode_progress_work_queue_resume_and_trace(tmp_path):
     utts = [f"utt{i:03d}" for i in range(10)]
     seen = []
 
-    @profiling.annotate_fn("decode_batch")
     def crashy(batch):
-        if "utt006" in batch:
-            raise RuntimeError("simulated failure")
-        with profiling.scope("batch_sum"):
-            torch.ones(8).sum()
-        seen.extend(batch)
+        with profiling.scope("decode_batch"):
+            if "utt006" in batch:
+                raise RuntimeError("simulated failure")
+            with profiling.scope("batch_sum"):
+                torch.ones(8).sum()
+            seen.extend(batch)
 
     with profiling.trace(str(tmp_path / "trace")) as prof:
         prog = checkpoint.DecodeProgress(path)
