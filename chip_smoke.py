@@ -52,8 +52,13 @@ Phases, each of which fails the run loudly:
      batched decodes at bench.py's shape (8 x 1000 frames, kcap 256, beam
      40) with exactly 1000 select launches each and their audio-seconds
      per second; the card's tokens and words against the CPU plain path's
-     (utterances 0-1, frames 0-199, bitwise); the in-domain 0-WER gate on
-     the V = 300 graph for both decoders; the streaming recogniser
+     (utterances 0-1, frames 0-199, bitwise); TB, the traceback kernel
+     against its twin bitwise, one launch a call, at the v2k cells' shape
+     (1,024 lanes of 166-818 frames, kcap 256, tables from a dense token
+     pass), at U = 1 over concatenated streamed chunks, through the split
+     graph's row table, and at K = 37, unaligned tables, K = 20,000 and U =
+     3,000, each timed beside its byte bound and the host path it replaced;
+     the in-domain 0-WER gate on the V = 300 graph for both decoders; the streaming recogniser
      (front end + chunked decode) against the offline decode; and the
      streaming recogniser over a GSC pipeline, its subband frames against
      the CPU plain path's;
@@ -324,7 +329,7 @@ def phase_tri_decode(ctx, cfg_t=None, expect=TRI_V300, n_sents=4):
         run(lls[0][:20])                 # warm-up
         outs, secs = ctx.timed(lambda: ctx.counted(
             f"T: {name} decode ({len(sents)} sentences)", lambda: [run(x) for x in lls],
-            {"select": sum(frames)}))
+            {"select": sum(frames), "traceback": len(lls)}))
         hyps = [[task.words.name(int(w)) for w in o[0] if w] for o in outs]
         overflow = sum(int(o[3]) for o in outs) if name == "split" else 0
         print(f"T: {name} decode of {len(sents)} sentences ({frames} frames), kcap {kcap}, beam "
@@ -432,7 +437,7 @@ def phase_parallel(ctx, task, tg, ll, kcap=256, beam=40.0):
             t_build = time.perf_counter() - t_build
             run(ll[:, :20], np.full(U, 20))                            # warm-up
             out = ctx.counted(f"P1: sharded decode (model 1) {U} x {T} frames",
-                              lambda: run(ll, lens), {"select": 2 * T})
+                              lambda: run(ll, lens), {"select": 2 * T, "traceback": 1})
             ol_d, sc_d = tk.decode_batch(tg, ll, lens, kcap=kcap, beam=beam)
             same_tok = same_bits(out[3:], dense_tokens(tg, ll, lens, kcap))
             same_words = torch.equal(out[0], ol_d)
@@ -470,7 +475,7 @@ def phase_parallel(ctx, task, tg, ll, kcap=256, beam=40.0):
                 sim, t_sim = secs(lambda: ctx.counted(
                     f"P2: {n} shards simulated, utterance 0",
                     lambda: simulate_sharded_kernel_decode(tg, ll[0], n, kcap=kcap, beam=beam),
-                    {"select": 2 * T}))
+                    {"select": 2 * T, "traceback": 1}))
                 ok = (torch.equal(sim[0], ol_d[0]) and np.float32(sim[1]).view(np.int32)
                       == sc_d[0].numpy().view(np.int32))
                 print(f"P2: {n} shards on one card, utterance 0 ({T} frames, kcap {kcap}, beam "
@@ -510,7 +515,7 @@ def phase_parallel(ctx, task, tg, ll, kcap=256, beam=40.0):
                                                               return_tokens=True))
             out20, t_dec = secs(lambda: ctx.counted("P3: sharded decode V=20k",
                                                     lambda: run20(ll20, lens20),
-                                                    {"select": 2 * T20}))
+                                                    {"select": 2 * T20, "traceback": 1}))
             peak_sh = torch.cuda.max_memory_allocated()
             del run20
             torch.cuda.empty_cache()
@@ -701,7 +706,8 @@ def phase_tri_train(ctx, n_train=30, n_eval=6, ndist=60):
 
     hyps, t_dec = ctx.timed(lambda: ctx.counted(
         f"TT: eval ({n_eval} utterances, single mic and MVDR, triphone and monophone decodes)",
-        run_eval, {"analysis": n_eval, "synthesis": n_eval, "select": 4 * sum(nfr)}))
+        run_eval, {"analysis": n_eval, "synthesis": n_eval, "select": 4 * sum(nfr),
+                   "traceback": 4 * len(nfr)}))
     refs = [list(ws) for ws, _ in evalc]
     wer = {k: ctx.wer_of(refs, h).wer for k, h in hyps.items()}
     print(f"TT: triphone graph ({len(lexicon)} words) {gstats} in {t_graph:.2f} s, monophone graph "
@@ -1721,6 +1727,117 @@ def decode_tables(g, ll, kcap: int, beam: float):
                          np.full(ll.shape[0], ll.shape[1]), st0, sc0, beam, kcap)[2:5]
 
 
+def hold_traceback(ctx, label, ts, ta, sf, scf, ff, lengths, a_div, src_of_row=None):
+    """The traceback kernel on one set of token tables against its twin
+    (the host's old path: the tables' copy and the NumPy walk), bitwise,
+    exactly one launch (counted); prints the kernel's time beside its byte
+    bound (each walked frame's state row and one arc, the words written,
+    the final carry) and the host path's time.  The timed launches are
+    left out of the run's totals."""
+    from dsr_tpu_torch.ops.cuda import traceback as ctb
+
+    T, U, K = ts.shape
+    lens = torch.as_tensor(np.minimum(np.asarray(lengths), T), dtype=torch.int32, device=ctx.dev)
+    args = (ts, ta, sf, scf, ff, lens, a_div, src_of_row)
+    arcs, best = ctx.counted(f"TB {label}", lambda: ctb.traceback(*args), {"traceback": 1})
+    t0 = time.perf_counter()
+    host = [None if x is None else x.cpu() if isinstance(x, torch.Tensor) else x for x in args]
+    arcs_h, best_h = ctb.traceback_plain(*host)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(arcs.cpu(), arcs_h) and torch.equal(ctx.bits(best.cpu()),
+                                                           ctx.bits(best_h))
+    walked = int(lens.sum())
+    nbytes = walked * (4 * K + 4) + 4 * U * T + 12 * U * K + 8 * U
+    ms = cuda_ms(lambda: ctb.traceback(*args), iters=20, warmup=3)
+    b_ms, b_by = bound(nbytes, 0)
+    print(f"TB {label}: U={U} T={T} K={K} ({walked} frames walked, {int((arcs_h >= 0).sum())} "
+          f"arcs kept): kernel == twin bitwise {same}; kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB; "
+          f"{100 * b_ms / ms:.1f} % of it); the host path (copy + NumPy walk) {host_ms:.1f} ms  "
+          f"[{ctx.smi}]")
+    check(same, f"TB {label}: the kernel differs from its twin")
+    return dict(max_abs_err=0.0, rel_err=0.0, ms=ms, plain_ms=host_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def phase_traceback(ctx, tg, sg, ll8, lens8, kcap=256, beam=40.0, eg=896, U=1024, T=818):
+    """TB, the traceback kernel (`ops/cuda/traceback.py`) against its twin,
+    bitwise, one launch a call: at the v2k cells' shape (U = 1,024 lanes of
+    166-818 noisy frames, token tables from the dense token pass on the V =
+    2000 graph, kcap 256), at U = 1 over a streamed utterance's
+    concatenated chunk tables, and through the degree-split graph's row
+    table (phase 6's 8 x 1000 frames); then the dense decoder's whole
+    traceback (walk, olabel lookup, the words' copy) on the host clock.
+    Every token pass and traceback runs through `ctx.counted` and must
+    launch exactly its kernels.  Runs no benchmark."""
+    from functools import partial
+
+    from dsr_tpu_torch.asr.decoder import split_decoder as sd
+    from dsr_tpu_torch.asr.decoder import topk_decoder as tk
+
+    dev, P = ctx.dev, ll8.shape[-1]
+    lens = np.random.default_rng(19).integers(T // 5, T + 1, U)
+    lens[0] = T
+    gen = torch.Generator(device=dev).manual_seed(19)
+    ll = 0.5 * torch.randn((U, T, P), generator=gen, device=dev)
+    st0, sc0 = tk.start_tokens(tg, U, kcap)
+    sf, scf, ts, ta, _, _, _ = ctx.counted(
+        f"TB: dense token pass {U} x {T} frames",
+        lambda: tk.token_pass(partial(tk.candidates, tg), ll, lens, st0, sc0, beam, kcap),
+        {"select": T})
+    ctx.record["traceback"] = hold_traceback(ctx, "v2k shape, dense graph", ts, ta, sf, scf,
+                                             tg.final_weight[sf], lens, tg.a_max)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx.counted("TB: the dense decoder's traceback",
+                lambda: tk.traceback_tables(tg, ts, ta, sf, scf, lens, (tg.a_max, None)),
+                {"traceback": 1})
+    print(f"TB: the dense decoder's traceback at the v2k shape (walk, olabel lookup, the "
+          f"words' copy) {(time.perf_counter() - t0) * 1e3:.2f} ms on the host clock")
+    del ts, ta, ll
+
+    carry, chunks = tk.stream_start(tg, kcap), []
+    x1 = 0.5 * torch.randn((T, P), generator=gen, device=dev)
+    for a, b in ((0, T // 8), (T // 8, T // 2), (T // 2, T)):
+        carry, outs = ctx.counted(f"TB: streamed chunk frames {a}-{b}",
+                                  lambda a=a, b=b: tk.decode_chunk(tg, x1[a:b], carry, kcap,
+                                                                   beam),
+                                  {"select": b - a})
+        chunks.append(outs[:2])
+    ts1 = torch.cat([c[0] for c in chunks])[:, None]
+    ta1 = torch.cat([c[1] for c in chunks])[:, None]
+    hold_traceback(ctx, "U=1, three streamed chunks", ts1, ta1, carry[0][None],
+                   carry[1][None], tg.final_weight[carry[0]][None], [T], tg.a_max)
+
+    U8 = ll8.shape[0]
+    st0, sc0 = tk.start_tokens(sg, U8, kcap)
+    sf, scf, ts, ta, _, _, _ = ctx.counted(
+        f"TB: split token pass {U8} x {ll8.shape[1]} frames",
+        lambda: tk.token_pass(lambda s_, c_, l_: sd.candidates(sg, s_, c_, l_, eg), ll8, lens8,
+                              st0, sc0, beam, kcap),
+        {"select": ll8.shape[1]})
+    hold_traceback(ctx, "split graph a0=2, row table", ts, ta, sf, scf, sg.final_weight[sf],
+                   lens8, sg.a0, sg.src_of_row)
+
+    # shapes off the decoders' path: K not a multiple of 4, tables not
+    # 16-byte aligned, a row of 20,000 slots (a short ring,
+    # one warp a block), more utterances than the card has warp slots in a
+    # wave; random tables over 50 states, so that states repeat in a row
+    rng = np.random.default_rng(23)
+    for Ue, Te, Ke, shift in ((5, 60, 37, 0), (9, 50, 256, 1), (3, 40, 20_000, 0),
+                              (3000, 20, 8, 0)):
+        n = Te * Ue * Ke
+        flat = torch.as_tensor(rng.integers(0, 50, n + shift), dtype=torch.int32, device=dev)
+        ts_e = flat[shift:].view(Te, Ue, Ke)
+        arcs_e = rng.integers(-1, 50 * 3, n + shift)
+        ta_e = torch.as_tensor(arcs_e, dtype=torch.int32, device=dev)[shift:].view(Te, Ue, Ke)
+        sf_e = ts_e[-1].contiguous()
+        scf_e = torch.as_tensor(rng.integers(-9, 0, (Ue, Ke)), dtype=torch.float32, device=dev)
+        fin = torch.as_tensor(np.where(rng.random(50) < 0.3, 0.0, NEG), dtype=torch.float32,
+                              device=dev)
+        hold_traceback(ctx, f"edge U={Ue} K={Ke}{' unaligned' if shift else ''}", ts_e, ta_e,
+                       sf_e, scf_e, fin[sf_e.long()], rng.integers(0, Te + 3, Ue), 3)
+
+
 def phase_u1(ctx):
     """U1, serving from files at the serving example's width: 16 utterances
     x 8 ch x 4 s of PCM16 WAV, the native loader at batch 4, the staged
@@ -1774,7 +1891,8 @@ def phase_u1(ctx):
 
     # the serving loops, counted: one staged fused launch an utterance, one
     # select launch a decode frame
-    expect = {"analysis_beamform_staged": 16, "select": len(batches) * T}
+    expect = {"analysis_beamform_staged": 16, "select": len(batches) * T,
+              "traceback": len(batches)}
     sp.serve_sequential(server, paths)                            # warm-up
     torch.cuda.synchronize()
     runs = {}
@@ -1895,7 +2013,7 @@ def phase_u3(ctx, server, paths, words_ref):
     T = fb.num_frames(server.num_samples, server.cfg)
     (before, n), secs = ctx.timed(lambda: ctx.counted(
         "U3: restartable decode (crash in batch 3, resume)", crash_and_resume,
-        {"analysis_beamform_staged": 16, "select": 4 * T}))
+        {"analysis_beamform_staged": 16, "select": 4 * T, "traceback": 4}))
     after = [u for u in ids if u not in before]
     once = all(decoded[u] == 1 for u in ids)
     same = [words[u] for u in ids] == words_ref
@@ -1907,7 +2025,7 @@ def phase_u3(ctx, server, paths, words_ref):
 
 
 TRACE_NAMES = ("serving.beamform", "serving.features", "serving.decode",
-               "analysis_beamform_kernel", "select_kernel")
+               "analysis_beamform_kernel", "select_kernel", "traceback_kernel")
 
 
 def trace_batch(paths: list[str], log_dir: str) -> None:
@@ -1921,6 +2039,7 @@ def trace_batch(paths: list[str], log_dir: str) -> None:
     from dsr_tpu_torch.examples import serving_pipeline as sp
     from dsr_tpu_torch.ops.cuda import filterbank as cfb
     from dsr_tpu_torch.ops.cuda import select as csel
+    from dsr_tpu_torch.ops.cuda import traceback as ctb
     from dsr_tpu_torch.utils import profiling
     from dsr_tpu_torch.utils.audio import read_wav
 
@@ -1928,7 +2047,7 @@ def trace_batch(paths: list[str], log_dir: str) -> None:
     audio = np.stack([read_wav(p_)[0] for p_ in paths])
     server.decode(server.logliks(server.upload(audio)))
     torch.cuda.synchronize()
-    for mod in (cfb, csel):
+    for mod in (cfb, csel, ctb):
         mod.reset_launches()
     with profiling.trace(log_dir) as prof:
         server.decode(server.logliks(server.upload(audio)))
@@ -1941,8 +2060,8 @@ def trace_batch(paths: list[str], log_dir: str) -> None:
     print(json.dumps({"found": {n: text.count(n) for n in TRACE_NAMES}, "device": device,
                       "trace": os.path.basename(prof.trace_path),
                       "bytes": os.path.getsize(prof.trace_path),
-                      "launches": {k: n for mod in (cfb, csel) for k, n in mod.launches.items()
-                                   if n}}))
+                      "launches": {k: n for mod in (cfb, csel, ctb)
+                                   for k, n in mod.launches.items() if n}}))
 
 
 def phase_u4(ctx, server, paths):
@@ -1964,7 +2083,7 @@ def phase_u4(ctx, server, paths):
                                                         timeout=600))
     check(proc.returncode == 0, f"U4: the traced process failed:\n{proc.stderr[-3000:]}")
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    expect = {"analysis_beamform_staged": 4, "select": T}
+    expect = {"analysis_beamform_staged": 4, "select": T, "traceback": 1}
     print(f"U4: trace {res['trace']} ({res['bytes']} bytes) of one batch, in a process of its "
           f"own ({secs:.1f} s), names {res['found']}; launches {res['launches']}")
     dev_ms = res["device"]
@@ -2103,6 +2222,7 @@ def main() -> int:
     from dsr_tpu_torch.ops.cuda import gsc as cgsc
     from dsr_tpu_torch.ops.cuda import select as csel
     from dsr_tpu_torch.ops.cuda import steering as csteer
+    from dsr_tpu_torch.ops.cuda import traceback as ctb
     from dsr_tpu_torch.ops.cuda import viterbi as cvit
     from dsr_tpu_torch.pipeline import DsrPipeline, StreamingRecognizer
     from dsr_tpu_torch.utils import corpus, design
@@ -2751,7 +2871,7 @@ def main() -> int:
     fwd, (x_entry,) = entry()
     torch.cuda.synchronize()
 
-    counters = (cfb, csel, cgsc, csteer, cvit)
+    counters = (cfb, csel, cgsc, csteer, cvit, ctb)
     counts = {name: 0 for mod in counters for name in mod.launches}
 
     def counted(path, fn, expect):
@@ -3064,7 +3184,7 @@ def main() -> int:
     decode_s = {}
     for name, run in decoders.items():
         run()                                          # warm-up
-        out = counted(f"decode {name} 8 x 1000 frames", run, {"select": T})
+        out = counted(f"decode {name} 8 x 1000 frames", run, {"select": T, "traceback": 1})
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         reps = 2
@@ -3096,8 +3216,12 @@ def main() -> int:
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             run100()
             torch.cuda.synchronize()
+        # kernels and copies, not the device-side spans of the program's
+        # `record_function` scopes, which the profiler also files under CUDA
+        spans = {e.name for e in prof.events() if e.is_user_annotation}
         events = sorted((e for e in prof.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.key not in spans),
                         key=lambda e: -e.self_device_time_total)
         busy_us = sum(e.self_device_time_total for e in events) / 100
         if busy_us > 0:
@@ -3117,8 +3241,7 @@ def main() -> int:
         beam, kcap)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    src_of_row = sg.src_of_row.cpu().numpy()
-    tk.traceback_tables(sg, ts, ta, sf, scf, lens, lambda a: src_of_row[a // sg.a0])
+    tk.traceback_tables(sg, ts, ta, sf, scf, lens, (sg.a0, sg.src_of_row))
     t_back = time.perf_counter() - t0
     sel_ms = {"split": record["select"]["ms"]}
     args = select_case(12032, 256, 40.0, 12032 + 40)
@@ -3159,6 +3282,10 @@ def main() -> int:
               f"states, arcs and scores bitwise equal {same}; words and scores equal "
               f"{same_words}")
         check(same and same_words, f"decode {name}: the card differs from the CPU plain path")
+
+    # TB: the traceback kernel against its twin
+    phase_traceback(types.SimpleNamespace(dev=dev, smi=smi, record=record, counted=counted,
+                                          bits=bits), tg, sg, ll, lens, kcap, beam, eg)
 
     # in-domain gate (tests/test_lvcsr.py's): V=300 graph, synthetic AM, 0 WER
     rng0 = np.random.default_rng(cfg300.seed)
@@ -3201,7 +3328,8 @@ def main() -> int:
     rec = StreamingRecognizer(pipe_s, lambda f: gmm.loglik(am_s, f), tg300, SOURCE,
                               cep_mean=cep_mean)
     words_s, score_s = counted("streaming", lambda: rec.run(chunks),
-                               {"analysis": len(chunks), "select": Y_off.shape[0]})
+                               {"analysis": len(chunks), "select": Y_off.shape[0],
+                                "traceback": 1})
     print(f"streaming recogniser ({len(chunks)} ragged chunks, {Y_off.shape[0]} frames): "
           f"{len(words_s)} words, equal to the offline decode's {words_s == words_off}; "
           f"score {score_s:.3f} vs offline {float(sc_off):.3f}")
@@ -3220,7 +3348,8 @@ def main() -> int:
     rec_g = StreamingRecognizer(pipe_sg, lambda f: gmm.loglik(am_s, f), tg300, SOURCE,
                                 cep_mean=cep_mean)
     words_g, score_g = counted("streaming over GSC", lambda: rec_g.run(chunks),
-                               {"analysis": len(chunks), "select": frames_g.shape[0]})
+                               {"analysis": len(chunks), "select": frames_g.shape[0],
+                                "traceback": 1})
     print(f"streaming recogniser over GSC ({len(chunks)} chunks, {frames_g.shape[0]} frames): "
           f"subband frames card vs CPU plain path rel err {e_frames:.2e} (bound 1e-4); "
           f"{len(words_g)} words, score {score_g:.3f}")
@@ -3405,7 +3534,7 @@ def main() -> int:
     lat_outs, t_ldec = timed(lambda: counted(
         "L: lattice decode (V=2000, 4 sentences, kcap 256, beam 40, nlat 4)",
         lambda: [tk.decode_with_tokens(tg, l_, kcap=256, beam=40.0, nlat=4) for l_ in lls],
-        {"select_lattice": sum(frames_l)}))
+        {"select_lattice": sum(frames_l), "traceback": len(frames_l)}))
     host_s = dict.fromkeys(("from_topk", "forward_backward", "one_best", "oracle", "consensus"),
                            0.0)
     errs_l = []
@@ -3490,7 +3619,7 @@ def main() -> int:
 
     (g_ex, g_pr), t_lden = timed(lambda: counted(
         "MM: lattice denominators (exhaustive, pruned)", lattice_denominators,
-        {"select_lattice": ll_1.shape[0] + ll_4.shape[0]}))
+        {"select_lattice": ll_1.shape[0] + ll_4.shape[0], "traceback": 2}))
     g_d1, g_d4 = (mmi.denominator_gamma(graph1, l_).cpu().numpy() for l_ in (ll_1, ll_4))
     d_ex, d_pr = float(np.abs(g_ex - g_d1).max()), float(np.abs(g_pr - g_d4).mean())
     print(f"MM: lattice denominator vs full graph: exhaustive (kcap {S1}, nlat "
@@ -3576,11 +3705,12 @@ def main() -> int:
                 "steering": "dsr_tpu/ops/pallas/steering.py:34",
                 "viterbi": "dsr_tpu/ops/pallas/viterbi.py:35",
                 "select_lattice": "dsr_tpu/ops/pallas/select.py:277",
-                "analysis_beamform_staged": "dsr_tpu/ops/pallas/filterbank.py:338"}
+                "analysis_beamform_staged": "dsr_tpu/ops/pallas/filterbank.py:338",
+                "traceback": "none (XLA: dsr_tpu/asr/decoder/topk_decoder.py:335)"}
     sources = {"analysis": "analysis.cu", "analysis_beamform": "analysis.cu",
                "synthesis": "filterbank.cu", "select": "select.cu", "gsc": "gsc.cu",
                "steering": "steering.cu", "viterbi": "viterbi.cu", "select_lattice": "select.cu",
-               "analysis_beamform_staged": "analysis.cu"}
+               "analysis_beamform_staged": "analysis.cu", "traceback": "traceback.cu"}
     for name, source in sources.items():
         r = record[name]
         kernels.append({"name": name, "route": "cuda",

@@ -162,9 +162,8 @@ def decode_batch_split(graph: SplitTokenGraph, loglik, lengths, kcap: int = 256,
     # a frame counts as overflowed only while the utterance is running
     ovf = torch.stack([x[0] for x in extras]).cpu().numpy()          # (T, U)
     ovf_frames = (ovf & (np.arange(T)[:, None] < lengths[None, :])).sum(axis=0)
-    src_of_row = graph.src_of_row.cpu().numpy()
     olabs, best_score = traceback_tables(graph, ts, ta, sf, scf, lengths,
-                                         lambda a: src_of_row[a // graph.a0])
+                                         (graph.a0, graph.src_of_row))
     return (olabs, best_score, torch.zeros(U, dtype=torch.int64),
             torch.from_numpy(ovf_frames.astype(np.int64)))
 

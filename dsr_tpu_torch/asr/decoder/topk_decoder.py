@@ -12,8 +12,10 @@ Counterpart of `dsr_tpu/asr/decoder/topk_decoder.py`, its sort path
     smallest arc id), the beam prune and the top-K selection are one call
     of `ops/cuda/select.recombine_topk`: the hand-written kernel for CUDA
     tensors, its plain twin for CPU tensors;
-  - backpointers: the (T, K) winning arcs; the traceback copies the token
-    tables to the host once and walks them back there.
+  - backpointers: the (T, K) winning arcs; the traceback walks the token
+    tables back where they are (`ops/cuda/traceback.traceback`: the
+    hand-written kernel for CUDA tensors, its NumPy twin for CPU tensors),
+    and only the olabels and scores come to the host.
 
 The utterance axis of `decode_batch` is written out (U rows per call), and
 the frame loop is a Python loop.  The selection is always exact, so the
@@ -33,8 +35,9 @@ olabels and scores are CPU tensors.
 Spans (`utils/profiling.scope`): `decoder.batch` around `decode_batch`,
 `decoder.frame_loop` (device-timed) around every frame loop,
 `decoder.traceback` around every traceback, holding
-`decoder.traceback.copy` (device-timed: the token tables' copies to the
-host) and `decoder.traceback.walk` (the NumPy walk).  While the recorder
+`decoder.traceback.walk` (device-timed: the walk and the olabel lookup)
+and `decoder.traceback.copy` (device-timed: the (U, T) olabels' and the
+(U,) scores' copies to the host).  While the recorder
 is on the frame loop also counts `decoder.frames` (T a call),
 `decoder.active_rows`, `decoder.candidates_written` (U·N a frame),
 `decoder.candidates_live` and `decoder.slots_live` (score > NEG/2 on
@@ -51,6 +54,7 @@ import torch
 
 from dsr_tpu_torch.asr.fsm.packed import PackedGraph
 from dsr_tpu_torch.ops.cuda.select import recombine_topk
+from dsr_tpu_torch.ops.cuda.traceback import traceback as walk_back
 from dsr_tpu_torch.utils import profiling
 from dsr_tpu_torch.utils.device import resolve
 
@@ -172,62 +176,27 @@ def _count_frames(live, tok_scores, lengths: np.ndarray, written: int) -> None:
     profiling.count("decoder.slots_live", ((tok_scores > NEG / 2).sum(2) * active).sum())
 
 
-def _best_final(states_f: np.ndarray, scores_f: np.ndarray, final_f: np.ndarray):
-    """(best state, best score) per utterance from the final carry
-    (U, K) and its states' final weights final_f (U, K): score + final
-    weight, or, when no token reaches a final state (an utterance cut
-    mid-word), the best token without it."""
-    total = scores_f + final_f
-    dead = ~(total.max(axis=1) > NEG / 2)
-    total[dead] = scores_f[dead]
-    slot = np.argmax(total, axis=1)
-    rows = np.arange(len(slot))
-    return states_f[rows, slot], total[rows, slot]
-
-
-def _backtrack(tok_states: np.ndarray, tok_arcs: np.ndarray, best_state: np.ndarray,
-               lengths, source_of) -> tuple[np.ndarray, np.ndarray]:
-    """Walk the (T, U, K) token tables back from each utterance's best
-    state → (arcs (T, U), valid (T, U)).  At frame t the token holding the
-    current state (its first slot; slot 0 if none does) gives the arc;
-    it is followed while t < length and the arc is >= 0, and
-    source_of(arcs) maps arc ids to their source states."""
-    T, U, _ = tok_states.shape
-    lengths = np.full(U, T) if lengths is None else np.asarray(lengths)
-    state = best_state.copy()
-    rows = np.arange(U)
-    arcs = np.zeros((T, U), np.int64)
-    valid = np.zeros((T, U), bool)
-    for t in range(T - 1, -1, -1):
-        slot = np.argmax(tok_states[t] == state[:, None], axis=1)
-        arc = tok_arcs[t, rows, slot].astype(np.int64)
-        ok = (t < lengths) & (arc >= 0)
-        arcs[t] = np.maximum(arc, 0)
-        valid[t] = ok
-        state = np.where(ok, source_of(np.maximum(arc, 0)), state)
-    return arcs, valid
-
-
 def traceback_lookups(tok_states, tok_arcs, states_f, scores_f, lengths, source_of, final_of,
                       olabel_of):
     """The traceback of every top-K decoder: the (T, U, K) token tables and
     the final carry (U, K) → (olabels (U, T), scores (U,)), CPU tensors.
-    final_of(states) and olabel_of(arcs) look up the final weights of
-    states and the olabels of arc ids given as tensors on the carry's
-    device; source_of maps host arc ids to their source states.  The token
-    tables come to the host once, and no whole graph table is copied."""
+    The walk runs on the tables' device (`ops/cuda/traceback.traceback`);
+    source_of = (a_div, src_of_row or None) maps an arc id to its source
+    state, arc // a_div, through the row table when given; final_of(states)
+    and olabel_of(arcs) look up the final weights of states and the olabels
+    of arc ids given as tensors on the carry's device.  Only the olabels
+    and the scores come to the host; no whole graph table is copied."""
     dev = states_f.device
+    T, U = tok_states.shape[:2]
+    lengths = np.full(U, T) if lengths is None else np.asarray(lengths)
     with profiling.scope("decoder.traceback"):
+        with profiling.scope("decoder.traceback.walk", device=dev):
+            arcs, best = walk_back(tok_states, tok_arcs, states_f, scores_f, final_of(states_f),
+                                   torch.as_tensor(lengths, dtype=torch.int32, device=dev),
+                                   *source_of)
+            olabs = torch.where(arcs >= 0, olabel_of(arcs.clamp(min=0).long()), 0)
         with profiling.scope("decoder.traceback.copy", device=dev):
-            final = (states_f.cpu().numpy(), scores_f.cpu().numpy(),
-                     final_of(states_f).cpu().numpy())
-            tables = tok_states.cpu().numpy(), tok_arcs.cpu().numpy()
-        with profiling.scope("decoder.traceback.walk"):
-            best_state, best_score = _best_final(*final)
-            arcs, valid = _backtrack(*tables, best_state, lengths, source_of)
-        olabs = torch.where(torch.as_tensor(valid, device=dev),
-                            olabel_of(torch.as_tensor(arcs, device=dev)), 0)
-        return olabs.T.contiguous().cpu(), torch.from_numpy(best_score)
+            return olabs.cpu(), best.cpu()
 
 
 def traceback_tables(graph, tok_states, tok_arcs, states_f, scores_f, lengths, source_of):
@@ -240,7 +209,7 @@ def traceback_tables(graph, tok_states, tok_arcs, states_f, scores_f, lengths, s
 
 def _traceback(graph: TokenGraph, tok_states, tok_arcs, states_f, scores_f, lengths):
     return traceback_tables(graph, tok_states, tok_arcs, states_f, scores_f, lengths,
-                            lambda a: a // graph.a_max)
+                            (graph.a_max, None))
 
 
 def start_tokens(graph, U: int, kcap: int):

@@ -39,6 +39,7 @@ SOURCES = {
     "gsc": (PACKAGE / "ops" / "cuda" / "csrc" / "gsc.cu", "nvcc"),
     "steering": (PACKAGE / "ops" / "cuda" / "csrc" / "steering.cu", "nvcc"),
     "viterbi": (PACKAGE / "ops" / "cuda" / "csrc" / "viterbi.cu", "nvcc"),
+    "traceback": (PACKAGE / "ops" / "cuda" / "csrc" / "traceback.cu", "nvcc"),
     "wfst": (PACKAGE / "asr" / "fsm" / "csrc" / "wfst.cpp", "g++"),
     "audio": (PACKAGE / "utils" / "csrc" / "audio.cpp", "g++"),
 }

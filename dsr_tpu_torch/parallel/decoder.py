@@ -29,9 +29,10 @@ threshold is never above the global one (the local maximum is never above
 the global maximum); and every candidate is the same float32 sum
 (score + weight + log-likelihood) as in `topk_decoder.candidates`.
 
-The traceback runs on the host from the token tables; the final weights
-and the traced arcs' olabels come from their owner shards, merged by one
-all-reduce MAX over `model` each.
+The traceback walks each rank's token tables on its device
+(`topk_decoder.traceback_lookups`); the final weights and the traced arcs'
+olabels come from their owner shards, merged by one all-reduce MAX over
+`model` each.
 
 `simulate_sharded_kernel_decode` runs the same arithmetic for n shards in
 one process on one device: the shards ride the select's utterance axis.
@@ -189,7 +190,7 @@ def make_sharded_decode(mesh: DeviceMesh, graph: PackedGraph, kcap: int = 256,
 
         states, scores = tk.start_tokens(shard, Ul, kcap)
         sf, scf, ts, ta, tsc, _, _ = token_pass(expand, ll, lens, states, scores, beam, kcap)
-        olabs, best = tk.traceback_lookups(ts, ta, sf, scf, lens, lambda a: a // A, final_of,
+        olabs, best = tk.traceback_lookups(ts, ta, sf, scf, lens, (A, None), final_of,
                                            olabel_of)
         gather = lambda x, spec: sharding.gather_block(x.to(dev), mesh, spec)  # noqa: E731
         out = (gather(olabs, sharding.TOKENS).cpu(), gather(best, sharding.SCORES).cpu(),
@@ -235,7 +236,7 @@ def simulate_sharded_kernel_decode(graph: TokenGraph, loglik, n_shards: int, kca
 
     states, scores = tk.start_tokens(g, 1, kcap)
     sf, scf, ts, ta, tsc, _, _ = token_pass(expand, ll[None], [T], states, scores, beam, kcap)
-    olabs, score = tk.traceback_tables(g, ts, ta, sf, scf, [T], lambda a: a // A)
+    olabs, score = tk.traceback_tables(g, ts, ta, sf, scf, [T], (A, None))
     out = (olabs[0], float(score[0]), 0)
     if return_tokens:
         out += (ts[:, 0], ta[:, 0], tsc[:, 0])

@@ -178,9 +178,9 @@ def count(name: str, n) -> None:
 def launches() -> dict[str, int]:
     """The `ops/cuda` wrappers' kernel launches since their last
     `reset_launches()`, by kernel (their `launches` dicts, read as they are)."""
-    from dsr_tpu_torch.ops.cuda import filterbank, gsc, select, steering, viterbi
+    from dsr_tpu_torch.ops.cuda import filterbank, gsc, select, steering, traceback, viterbi
 
-    return {k: n for mod in (filterbank, gsc, select, steering, viterbi)
+    return {k: n for mod in (filterbank, gsc, select, steering, traceback, viterbi)
             for k, n in mod.launches.items()}
 
 

@@ -19,6 +19,7 @@ from dsr_tpu_torch.ops import beamforming as bf
 from dsr_tpu_torch.ops import features as ft
 from dsr_tpu_torch.ops import filterbank as fb
 from dsr_tpu_torch.ops.cuda import select as csel
+from dsr_tpu_torch.ops.cuda import traceback as ctb
 from dsr_tpu_torch.utils import profiling
 
 KCAP, BEAM = 16, 20.0
@@ -92,9 +93,10 @@ def test_spans_nest_and_share_a_request_id(tg):
     for name, s in snap.items():
         assert s["count"] == 2 and 0 < s["self_host_s"] <= s["host_s"]
     # the CPU's device time is its host time; a span with no device has none
-    for name in ("decoder.frame_loop", "decoder.traceback.copy"):
+    for name in ("decoder.frame_loop", "decoder.traceback.copy", "decoder.traceback.walk"):
         assert snap[name]["device_s"] == snap[name]["host_s"]
-    assert snap["decoder.traceback.walk"]["device_s"] is None
+    for name in ("decoder.batch", "decoder.traceback"):
+        assert snap[name]["device_s"] is None
     inner = snap["decoder.frame_loop"]["host_s"] + snap["decoder.traceback"]["host_s"]
     assert snap["decoder.batch"]["self_host_s"] == pytest.approx(
         snap["decoder.batch"]["host_s"] - inner)
@@ -152,6 +154,7 @@ def test_spans_show_under_the_profiler(tg, tmp_path):
 
 def test_snapshot_holds_the_launches_and_device_counters(monkeypatch):
     monkeypatch.setitem(csel.launches, "select", 7)
+    monkeypatch.setitem(ctb.launches, "traceback", 3)
     with profiling.recording():
         profiling.count("x", torch.tensor(2))
         profiling.count("x", torch.tensor([3]))
@@ -163,9 +166,10 @@ def test_snapshot_holds_the_launches_and_device_counters(monkeypatch):
     c = profiling.snapshot()["counters"]
     assert c["launches.select"] == 7 and c["launches.select_lattice"] == csel.launches[
         "select_lattice"]
+    assert c["launches.traceback"] == 3
     assert {k: c[k] for k in ("x", "y")} == {"x": 5, "y": 5}
     assert set(profiling.launches()) >= {"select", "analysis_beamform_staged", "synthesis",
-                                         "gsc", "steering", "viterbi"}
+                                         "gsc", "steering", "viterbi", "traceback"}
 
 
 def test_the_span_list_is_bounded(monkeypatch):
