@@ -7,14 +7,14 @@ import json
 
 import pytest
 
-from conftest import BENCH, REPO
+from conftest import BENCH, REPO, twin_names
 
 
 def fails(values: dict, limits: dict) -> list:
     return [n for n, v in values.items() if v > limits[n]]
 
 
-@pytest.mark.parametrize("workload", ["tiny.batch", "tiny.fe"])
+@pytest.mark.parametrize("workload", twin_names())
 def test_control_fails_at_a_tiny_size(tiny, workload):
     from bench_port import control, harness
 

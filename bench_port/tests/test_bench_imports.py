@@ -32,20 +32,19 @@ def test_sources_import_nothing_forbidden():
 
 
 def test_a_run_loads_nothing_forbidden(tmp_path):
-    """Both tiny cells run in a fresh interpreter: afterwards sys.modules
+    """Every tiny cell runs in a fresh interpreter: afterwards sys.modules
     holds no jax, jaxlib, flax, optax, dsr_tpu or golden."""
     code = f"""
-import sys, time
+import os, pathlib, sys
 sys.path.insert(0, {str(REPO)!r}); sys.path.insert(0, {str(BENCH / 'tests')!r})
-import conftest, pytest
+import conftest
 from bench_port import harness
 
-class F:
-    def mktemp(self, name):
-        import pathlib; p = pathlib.Path({str(tmp_path)!r}) / name; p.mkdir(); return p
-bench, layout = conftest.tiny.__wrapped__(F())
-for w in ("tiny.batch", "tiny.fe"):
-    conftest.run_tiny(bench, layout, w)
+d = pathlib.Path({str(tmp_path)!r})
+os.environ["DSR_TPU_TORCH_CACHE"] = str(d / "graphs")
+bench, layout = conftest.twins(conftest.load("../BENCHMARK.json"), d)
+for w in bench["workloads"]:
+    conftest.run_tiny(bench, layout, w["name"])
 print(harness.forbidden_modules())
 """
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}

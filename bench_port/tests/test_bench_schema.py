@@ -6,7 +6,7 @@ import re
 
 import pytest
 
-from conftest import BENCH, REPO, run_tiny
+from conftest import BENCH, REPO, run_tiny, tiny_files, twin_names
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -86,7 +86,22 @@ def test_files_are_named_as_names():
         assert all(NAME.match(part) for part in p.relative_to(REPO).parts), rel
 
 
-@pytest.mark.parametrize("workload", ["tiny.batch", "tiny.fe"])
+def test_every_cell_has_one_tiny_twin(bench):
+    """Each cell has `tests/tiny/<cell>.json` (the fixture names no cell),
+    each tiny file is a cell's, twins' names are unique and no cell's, and
+    every name a metric's `workloads` lists maps to a twin."""
+    files = tiny_files(bench)
+    names = [f["twin"] for f in files.values()]
+    assert len(set(names)) == len(names) and not set(names) & set(files)
+    assert sorted(names) == twin_names()
+    for f in files.values():
+        assert NAME.match(f["twin"]) and set(f) <= {"twin", "config", "traffic", "limits"}
+    for group in ("end_to_end", "per_layer"):
+        for m in bench[group]:
+            assert all(w in files for w in m.get("workloads", [])), m["name"]
+
+
+@pytest.mark.parametrize("workload", twin_names())
 def test_last_line_schema(tiny, workload):
     bench, layout = tiny
     result, checks, info = run_tiny(bench, layout, workload)
